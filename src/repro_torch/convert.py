@@ -1,0 +1,71 @@
+"""Carry an index built elsewhere into the port, from plain numpy arrays.
+
+The arrays are named as the reference's dataclass fields, so a caller that
+holds a ``repro`` index passes ``np.asarray`` of its leaves and this module
+never needs ``repro`` itself:
+
+``index_arrays``
+    ``levels``: a list of 3 dicts with the ``ByteMap`` fields ``data``,
+    ``counts``, ``length``, ``block``; ``offsets``: a list of 3 arrays; and
+    ``cw``, ``cw_len``, ``node_off``, ``base_rank``, ``sep_pos``, ``df``,
+    ``occ``, ``doc_len``, ``n``, ``n_docs``, ``s``, ``c``.
+``model_arrays``
+    the ``SCDCModel`` fields ``s``, ``c``, ``codes``, ``lens``,
+    ``rank_of_word``, ``word_of_rank``, ``freqs``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core import scdc
+from repro_torch.core.bytemap import ByteMap
+from repro_torch.core.wtbc import WTBCIndex
+
+
+def _t(a, dtype, device) -> torch.Tensor:
+    # np.array copies: the source may be a read-only view of another
+    # framework's buffer
+    return torch.from_numpy(np.array(a, dtype=dtype)).to(device)
+
+
+def from_reference(index_arrays: dict, model_arrays: dict, *,
+                   device) -> tuple[WTBCIndex, scdc.SCDCModel]:
+    """A port ``WTBCIndex`` on ``device`` and its ``SCDCModel`` from numpy
+    arrays under the reference's field names (module docstring)."""
+    a = index_arrays
+    levels = tuple(
+        ByteMap(data=_t(lv["data"], np.uint8, device),
+                counts=_t(lv["counts"], np.int32, device),
+                length=int(lv["length"]), block=int(lv["block"]))
+        for lv in a["levels"])
+    idx = WTBCIndex(
+        levels=levels,
+        offsets=tuple(_t(o, np.int32, device) for o in a["offsets"]),
+        cw=_t(a["cw"], np.uint8, device),
+        cw_len=_t(a["cw_len"], np.int32, device),
+        node_off=_t(a["node_off"], np.int32, device),
+        base_rank=_t(a["base_rank"], np.int32, device),
+        sep_pos=_t(a["sep_pos"], np.int32, device),
+        df=_t(a["df"], np.int32, device),
+        occ=_t(a["occ"], np.int32, device),
+        doc_len=_t(a["doc_len"], np.int32, device),
+        n=int(a["n"]), n_docs=int(a["n_docs"]), s=int(a["s"]), c=int(a["c"]))
+    m = model_arrays
+    model = scdc.SCDCModel(
+        s=int(m["s"]), c=int(m["c"]),
+        codes=np.asarray(m["codes"], dtype=np.uint8),
+        lens=np.asarray(m["lens"], dtype=np.int8),
+        rank_of_word=np.asarray(m["rank_of_word"], dtype=np.int32),
+        word_of_rank=np.asarray(m["word_of_rank"], dtype=np.int32),
+        freqs=np.asarray(m["freqs"], dtype=np.int64))
+    return idx, model
+
+
+def idf_table(table, idx: WTBCIndex) -> torch.Tensor:
+    """A (V,) float32 idf table carried across, on the index's device."""
+    t = np.asarray(table, dtype=np.float32)
+    if t.shape != (idx.vocab_size,):
+        raise ValueError(f"idf table of shape {t.shape}, expected "
+                         f"({idx.vocab_size},)")
+    return _t(t, np.float32, idx.device)

@@ -1,0 +1,45 @@
+"""Query executors behind the :class:`repro_torch.engine.SearchEngine` facade.
+
+One executor = one callable specialized on everything the search cores take
+as a static choice.  PyTorch runs eagerly, so there is nothing to compile;
+the facade still caches executors by key, and counts constructions in
+``SearchEngine.stats["traces"]`` — the number stays flat after ``warmup``
+exactly as the reference's jit-trace count does.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+from repro_torch.core import mega, ranked
+
+
+class ExecutorKey(NamedTuple):
+    """Hashable cache key."""
+    backend: str          # "single"
+    strategy: str         # "dr" (post-"auto" resolution)
+    mode: str             # "and" | "or"
+    measure: Any          # frozen scoring dataclass
+    k: int
+    batch_shape: tuple[int, int]   # (B, Q)
+    budget: int | None    # DR max_pops
+    beam_width: int       # frontier width P of the heap core
+    mega: bool            # run the pool-frontier megabatch core
+
+
+def make_single_dr(key: ExecutorKey, *, heap_cap: int, mega_cap: int, note):
+    """(idx, words, wmask, idf) -> DRResult with (B, k) leaves."""
+    note()
+    conjunctive = key.mode == "and"
+    if key.mega:
+        def fn(idx, words, wmask, idf):
+            return mega.topk_dr_mega(idx, words, wmask, idf, k=key.k,
+                                     conjunctive=conjunctive, cap=mega_cap,
+                                     max_pops=key.budget)
+    else:
+        def fn(idx, words, wmask, idf):
+            return ranked.topk_dr_batch(idx, words, wmask, idf, k=key.k,
+                                        conjunctive=conjunctive,
+                                        heap_cap=heap_cap,
+                                        max_pops=key.budget,
+                                        beam_width=key.beam_width)
+    return fn

@@ -1,0 +1,448 @@
+"""`SearchEngine` — the port's public query API (slice 1: WTBC-DR).
+
+    engine = SearchEngine.build(doc_tokens)                 # on the card
+    engine = SearchEngine.build(doc_tokens, device="cpu")   # plain PyTorch
+    res = engine.search([[w1, w2], [w3]], k=10, mode="and")
+    print(res.hits(0))
+
+The facade owns word-id -> frequency-rank mapping, ragged-query padding and
+masking (Q padded to pow2 buckets), idf tables, frontier capacities, the DR /
+BM25 compatibility check, anytime budgets and SLA classes, and an executor
+cache keyed like the reference's.  Slice 1 answers DR tf-idf ``and``/``or``
+queries through the heap core (``beam_width``) or the mega core
+(``mega=True``); DRB and BM25 routing, positional modes, sharding, snippets
+and the observability registry raise ``NotImplementedError`` naming the
+ROADMAP slice that brings them.
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+import zlib
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch import convert
+from repro_torch.core import scoring, wtbc
+from repro_torch.engine import executors
+from repro_torch.engine.config import SLA_CLASSES, EngineConfig
+from repro_torch.engine.results import SearchResults
+from repro_torch.kernels import backend
+
+MODES = ("and", "or", "phrase", "near")
+POSITIONAL_MODES = ("phrase", "near")
+STRATEGIES = ("dr", "drb", "auto")
+MEASURES = {"tfidf": scoring.TfIdf(), "bm25": scoring.BM25()}
+
+# cold-start pop cost (µs) assumed by the deadline -> budget conversion until
+# the engine has observed real traffic (see SearchEngine.us_per_pop)
+DEFAULT_US_PER_POP = 50.0
+
+_SLICE2 = "ROADMAP Queue 1, slice 2 (the rest of the query surface)"
+
+
+def pow2_bucket(n: int) -> int:
+    """Smallest power of two >= n (n >= 1) — the shape-bucket policy for the
+    query-word dim Q (and a serving batcher's batch dim B)."""
+    return 1 << max(0, int(n) - 1).bit_length()
+
+
+def budget_bucket(n: int) -> int:
+    """Largest power of FOUR <= n (n >= 1) — the anytime-budget quantizer, so
+    a deadline-derived budget that drifts with the live us/pop estimate maps
+    onto a handful of executor keys (floor: never overshoots a deadline)."""
+    n = max(1, int(n))
+    return 1 << ((n.bit_length() - 1) & ~1)
+
+
+def _normalize_docs(docs, vocab_size: int | None):
+    """Accept a corpus object (``.doc_tokens`` / ``.vocab_size``) or a plain
+    list of per-document word-id arrays; return (list[np.ndarray], vocab_size).
+    Word id 0 is the reserved document separator '$'."""
+    if hasattr(docs, "doc_tokens") and hasattr(docs, "vocab_size"):
+        if vocab_size is not None and vocab_size < int(docs.vocab_size):
+            raise ValueError(f"vocab_size={vocab_size} smaller than the "
+                             f"corpus's own vocab_size={docs.vocab_size}")
+        return list(docs.doc_tokens), int(vocab_size or docs.vocab_size)
+    doc_tokens = [np.asarray(d, dtype=np.int64) for d in docs]
+    if not doc_tokens:
+        raise ValueError("cannot build an engine over zero documents")
+    max_id = max((int(d.max()) for d in doc_tokens if len(d)), default=0)
+    for d in doc_tokens:
+        if len(d) and int(d.min()) < 1:
+            raise ValueError("word id 0 is reserved for the '$' separator; "
+                             "document ids must be >= 1")
+    if vocab_size is None:
+        vocab_size = max_id + 1
+    elif vocab_size <= max_id:
+        raise ValueError(f"vocab_size={vocab_size} too small for max word id "
+                         f"{max_id}")
+    return doc_tokens, int(vocab_size)
+
+
+class SearchEngine:
+    """Facade over the WTBC-DR search cores on one device.
+
+    Construct with :meth:`build` (or :meth:`from_arrays` to carry an index
+    across); query with :meth:`search`.
+    """
+
+    def __init__(self, *, _token=None, config: EngineConfig, model,
+                 idx: wtbc.WTBCIndex):
+        if _token is not _CTOR_TOKEN:
+            raise TypeError("use SearchEngine.build(...) or "
+                            "SearchEngine.from_arrays(...)")
+        self.config = config
+        self.model = model
+        self.n_docs = idx.n_docs
+        self.backend = "single"
+        self._idx = idx
+        self._idf_tables: dict[str, torch.Tensor] = {}
+        self._executors: dict[executors.ExecutorKey, Any] = {}
+        self._trace_counts: dict[executors.ExecutorKey, int] = {}
+        self._us_per_pop: float | None = None   # EWMA, None until observed
+        self._stats_lock = threading.Lock()     # executors / counts / EWMA
+        # the heap core's frontier: < 2*n_docs segments ever pending at once
+        self._heap_cap = 2 * idx.n_docs + 4
+        # the pool core's frontier holds <= n_docs segments (each split
+        # removes 1, adds <= 2, over < n_docs splits)
+        self._mega_cap = idx.n_docs + 2
+        self._df_np = idx.df.cpu().numpy()
+        self._content_tag: int | None = None
+
+    # -- construction -------------------------------------------------------
+
+    @classmethod
+    def build(cls, docs, config: EngineConfig | None = None, *,
+              vocab_size: int | None = None, device=None) -> "SearchEngine":
+        """Build an engine over ``docs`` (a corpus object or a list of
+        per-document word-id arrays, ids >= 1).  ``device`` defaults to the
+        card ("cuda", raising when none is present); pass "cpu" for the plain
+        PyTorch path."""
+        dev = backend.resolve_device(device)
+        config = config or EngineConfig()
+        doc_tokens, vocab_size = _normalize_docs(docs, vocab_size)
+        idx, model = wtbc.build_index(doc_tokens, vocab_size,
+                                      block=config.block, device=dev)
+        return cls(_token=_CTOR_TOKEN, config=config, model=model, idx=idx)
+
+    @classmethod
+    def from_arrays(cls, index_arrays: dict, model_arrays: dict,
+                    idf: dict | None = None,
+                    config: EngineConfig | None = None, *,
+                    device=None) -> "SearchEngine":
+        """An engine over an index carried across as plain numpy arrays under
+        the reference's field names (see :mod:`repro_torch.convert`).
+        ``idf`` maps measure names to idf tables to use instead of the
+        engine's own host-computed ones."""
+        dev = backend.resolve_device(device)
+        idx, model = convert.from_reference(index_arrays, model_arrays,
+                                            device=dev)
+        config = config or EngineConfig(block=idx.levels[0].block)
+        if config.block != idx.levels[0].block:
+            raise ValueError(f"config.block={config.block} differs from the "
+                             f"index's block {idx.levels[0].block}")
+        eng = cls(_token=_CTOR_TOKEN, config=config, model=model, idx=idx)
+        for name, table in (idf or {}).items():
+            if name not in MEASURES:
+                raise ValueError(f"unknown measure {name!r} in idf tables")
+            eng._idf_tables[name] = convert.idf_table(table, idx)
+        return eng
+
+    @classmethod
+    def shard(cls, *args, **kwargs):
+        raise NotImplementedError("document-sharded engines arrive with "
+                                  "ROADMAP Queue 1, slice 4 (scale-out)")
+
+    # -- state ----------------------------------------------------------------
+
+    @property
+    def idx(self) -> wtbc.WTBCIndex:
+        return self._idx
+
+    @property
+    def device(self) -> torch.device:
+        return self._idx.device
+
+    @property
+    def obs_registry(self):
+        raise NotImplementedError("the observability registry arrives with "
+                                  "ROADMAP Queue 1, slice 3 (serving)")
+
+    def _idf_table(self, measure) -> torch.Tensor:
+        if measure.name not in self._idf_tables:
+            self._idf_tables[measure.name] = measure.idf(self._idx)
+        return self._idf_tables[measure.name]
+
+    @property
+    def content_tag(self) -> int:
+        """CRC32 fingerprint of what this engine would answer with: the
+        config plus the index's document-frequency, separator-position and
+        document-length tables."""
+        if self._content_tag is None:
+            idx = self._idx
+            h = zlib.crc32(repr(dataclasses.astuple(self.config)).encode())
+            for leaf in (self._df_np, idx.sep_pos.cpu().numpy(),
+                         idx.doc_len.cpu().numpy()):
+                h = zlib.crc32(np.ascontiguousarray(leaf), h)
+            self._content_tag = h
+        return self._content_tag
+
+    # -- query normalization -------------------------------------------------
+
+    def _encode_queries(self, queries) -> tuple[np.ndarray, np.ndarray]:
+        """Word ids (array or ragged lists) -> padded (B, Q) frequency ranks
+        + validity mask.  A single flat query becomes a batch of one.  Q is
+        padded up to a power-of-two bucket with masked columns, which every
+        core ignores."""
+        if hasattr(queries, "ndim") or (
+                len(queries) and np.isscalar(queries[0])):
+            arr = np.asarray(queries, dtype=np.int64)
+            if arr.ndim == 1:
+                arr = arr[None, :]
+            if arr.ndim != 2:
+                raise ValueError(f"queries must be (B, Q) or (Q,), got shape "
+                                 f"{arr.shape}")
+            mask = np.ones(arr.shape, dtype=bool)
+        else:
+            rows = [np.asarray(q, dtype=np.int64).reshape(-1) for q in queries]
+            if not rows:
+                raise ValueError("empty query batch")
+            Q = max((len(r) for r in rows), default=0)
+            if Q == 0:
+                raise ValueError("all queries are empty")
+            arr = np.zeros((len(rows), Q), dtype=np.int64)
+            mask = np.zeros((len(rows), Q), dtype=bool)
+            for b, r in enumerate(rows):
+                arr[b, :len(r)] = r
+                mask[b, :len(r)] = True
+        V = self.model.vocab_size
+        bad = mask & ((arr < 1) | (arr >= V))
+        if bad.any():
+            raise ValueError(f"query word ids must be in [1, {V}); offending "
+                             f"ids: {sorted(set(arr[bad].tolist()))[:10]}")
+        Qb = pow2_bucket(arr.shape[1])
+        if Qb != arr.shape[1]:
+            arr = np.pad(arr, ((0, 0), (0, Qb - arr.shape[1])))
+            mask = np.pad(mask, ((0, 0), (0, Qb - mask.shape[1])))
+        ranks = np.where(mask, self.model.rank_of_word[arr], 0)
+        return ranks.astype(np.int32), mask
+
+    def _resolve_measure(self, measure):
+        if isinstance(measure, str):
+            try:
+                return MEASURES[measure]
+            except KeyError:
+                raise ValueError(f"unknown measure {measure!r}; expected one "
+                                 f"of {sorted(MEASURES)} or a scoring object")
+        for attr in ("name", "dr_compatible", "idf"):
+            if not hasattr(measure, attr):
+                raise ValueError(f"measure object lacks .{attr}")
+        return measure
+
+    def _resolve_strategy(self, strategy: str, measure) -> str:
+        if strategy not in STRATEGIES:
+            raise ValueError(f"unknown strategy {strategy!r}; expected one of "
+                             f"{STRATEGIES}")
+        if strategy == "auto":
+            strategy = "dr" if measure.dr_compatible else "drb"
+        if strategy == "dr":
+            scoring.assert_dr_compatible(measure)   # BM25 + "dr" -> ValueError
+            return strategy
+        raise NotImplementedError(f"WTBC-DRB (and the BM25 routing through "
+                                  f"it) arrives with {_SLICE2}")
+
+    # -- anytime cost model ---------------------------------------------------
+
+    def note_cost(self, seconds: float, pops_per_row: float) -> None:
+        """Feed the live us/pop estimator one observed batch: ``seconds`` of
+        blocking wall time against the mean per-row pop count (EWMA)."""
+        if pops_per_row <= 0 or seconds <= 0:
+            return
+        us = seconds * 1e6 / float(pops_per_row)
+        with self._stats_lock:
+            prev = self._us_per_pop
+            self._us_per_pop = us if prev is None else 0.8 * prev + 0.2 * us
+
+    @property
+    def us_per_pop(self) -> float:
+        """Live cost estimate (µs of wall time per pop per row);
+        ``DEFAULT_US_PER_POP`` until traffic has been observed."""
+        with self._stats_lock:
+            est = self._us_per_pop
+        return DEFAULT_US_PER_POP if est is None else est
+
+    def budget_for_deadline(self, deadline_ms: float) -> int | None:
+        """Pop budget affordable within ``deadline_ms`` at the live us/pop
+        estimate, floor-quantized to a :func:`budget_bucket`.  None when the
+        exhaustive search provably fits (a DR search pops < 2*n_docs + 2
+        segments)."""
+        pops = int(float(deadline_ms) * 1e3 / self.us_per_pop)
+        if pops >= 2 * self.n_docs + 2:
+            return None
+        return budget_bucket(max(1, pops))
+
+    # -- dispatch ------------------------------------------------------------
+
+    def _executor(self, key: executors.ExecutorKey):
+        with self._stats_lock:
+            ex = self._executors.get(key)
+        if ex is None:
+            def note():
+                with self._stats_lock:
+                    self._trace_counts[key] = self._trace_counts.get(key, 0) + 1
+            ex = executors.make_single_dr(key, heap_cap=self._heap_cap,
+                                          mega_cap=self._mega_cap, note=note)
+            with self._stats_lock:
+                ex = self._executors.setdefault(key, ex)
+        return ex
+
+    def warmup(self, queries, *, max_batch: int = 1, k: int | None = None,
+               mode: str = "and", strategy: str = "auto", measure="tfidf",
+               budget: int | None = None, sla: str | None = None,
+               beam_width: int | None = None,
+               mega: bool | None = None) -> int:
+        """Construct every executor the traffic profile can hit: one per
+        (batch bucket <= pow2(max_batch), Q bucket present in ``queries``),
+        each by one real search.  Returns the number of new executors; after
+        it, traffic of this profile adds none (``stats['traces']``)."""
+        if max_batch < 1:
+            raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+        if hasattr(queries, "ndim") or (
+                len(queries) and np.isscalar(queries[0])):
+            arr = np.asarray(queries)
+            rows = list(arr[None, :] if arr.ndim == 1 else arr)
+        else:
+            rows = [np.asarray(q).reshape(-1) for q in queries]
+        reps = {}                       # Q bucket -> one representative row
+        for r in rows:
+            reps.setdefault(pow2_bucket(max(1, len(r))), r)
+        before = sum(self._trace_counts.values())
+        kw = dict(k=k, mode=mode, strategy=strategy, measure=measure,
+                  budget=budget, sla=sla, beam_width=beam_width, mega=mega)
+        n_b = pow2_bucket(max_batch).bit_length()     # 1, 2, 4, ..., bucket
+        for r in reps.values():
+            row = [int(w) for w in r]
+            for bb in (1 << i for i in range(n_b)):
+                self.search([row] * bb, **kw)
+        return sum(self._trace_counts.values()) - before
+
+    def search(self, queries, *, k: int | None = None, mode: str = "and",
+               strategy: str = "auto", measure="tfidf",
+               budget: int | None = None,
+               deadline_ms: float | None = None,
+               sla: str | None = None,
+               window: int | None = None,
+               beam_width: int | None = None,
+               df_cap: int | None = None,
+               mega: bool | None = None) -> SearchResults:
+        """Ranked top-k retrieval (the reference's contract, DR and/or).
+
+        queries:  (B, Q) / (Q,) array of word ids, or ragged lists of ids.
+        k:        results per query (default ``config.default_k``).
+        mode:     "and" (conjunctive) or "or" (bag-of-words).
+        strategy: "dr" or "auto" (DR for tf-idf).
+        measure:  "tfidf" (DR); "bm25" is rejected by DR as in the reference.
+        budget:   anytime pop budget per row; results carry ``certified`` bits
+                  and a ``score_bound``.  A budget that cannot bind runs the
+                  exact search.
+        deadline_ms: converted to a budget through the live us/pop estimate
+                  (pow-4 buckets); combines with ``budget`` by min.
+        sla:      "exact" (rejects budgets/deadlines), "bounded" or
+                  "best_effort".
+        beam_width: frontier width P of the heap core (default
+                  ``config.default_beam_width``); results are identical at
+                  every width.
+        mega:     run the pool-frontier megabatch core (forces P=1).
+        window, df_cap: belong to the positional / DRB-OR paths of slice 2;
+                  rejected here as the reference rejects them on DR.
+        """
+        k = self.config.default_k if k is None else int(k)
+        if k <= 0:
+            raise ValueError(f"k must be positive, got {k}")
+        if mode not in MODES:
+            raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
+        if mode in POSITIONAL_MODES:
+            raise NotImplementedError(f"mode={mode!r} (positional search) "
+                                      f"arrives with {_SLICE2}")
+        if sla is not None and sla not in SLA_CLASSES:
+            raise ValueError(f"unknown sla {sla!r}; expected one of "
+                             f"{SLA_CLASSES}")
+        if deadline_ms is not None and float(deadline_ms) <= 0:
+            raise ValueError(f"deadline_ms must be positive, got {deadline_ms}")
+        anytime = budget is not None or deadline_ms is not None
+        sla = sla or ("bounded" if anytime else self.config.default_sla)
+        if sla == "exact" and anytime:
+            raise ValueError("sla='exact' guarantees an uninterrupted search "
+                             "— budget/deadline_ms require sla='bounded' or "
+                             "'best_effort'")
+        if deadline_ms is not None:
+            db = self.budget_for_deadline(deadline_ms)
+            if db is not None:
+                budget = db if budget is None else min(int(budget), db)
+        if window is not None:
+            raise ValueError(f"window applies to mode='near' only "
+                             f"(got mode={mode!r})")
+        m = self._resolve_measure(measure)
+        strat = self._resolve_strategy(strategy, m)
+        if budget is not None:
+            budget = int(budget)
+            if budget < 1:
+                raise ValueError(f"budget must be >= 1, got {budget}")
+            if budget >= 2 * self.n_docs + 2:
+                budget = None   # can never bind: run the plain exact search
+        if beam_width is None:
+            beam_width = self.config.default_beam_width
+        elif int(beam_width) < 1:
+            raise ValueError(f"beam_width must be >= 1, got {beam_width}")
+        beam_width = int(beam_width)
+        mega = self.config.default_mega if mega is None else bool(mega)
+        if mega:
+            beam_width = 1      # one pop per row: the batch dim IS the beam
+        if df_cap is not None:
+            raise ValueError("df_cap applies to the DRB/OR gather path only "
+                             f"(got strategy={strat!r}, mode={mode!r})")
+        ranks, mask = self._encode_queries(queries)
+        key = executors.ExecutorKey(self.backend, strat, mode, m, k,
+                                    tuple(ranks.shape), budget, beam_width,
+                                    mega)
+        ex = self._executor(key)
+        dev = self.device
+        words = torch.from_numpy(ranks).to(dev)
+        wmask = torch.from_numpy(mask).to(dev)
+        res = ex(self._idx, words, wmask, self._idf_table(m))
+        return SearchResults(docs=res.docs, scores=res.scores,
+                             n_found=res.n_found, work=res.iters, k=k,
+                             mode=mode, strategy=strat, measure=m.name,
+                             beam_width=beam_width, pops=res.pops,
+                             overflowed=res.overflowed, padded=res.padded,
+                             certified=res.certified,
+                             score_bound=res.bound, sla=sla)
+
+    # -- slice 2 surfaces ------------------------------------------------------
+
+    def snippets(self, results: SearchResults, length: int = 8):
+        raise NotImplementedError(f"snippets (wtbc.extract) arrive with "
+                                  f"{_SLICE2}")
+
+    def word_positions(self, doc: int, word_ids, cap: int = 32):
+        raise NotImplementedError(f"word_positions (wtbc.locate) arrive with "
+                                  f"{_SLICE2}")
+
+    # -- introspection -------------------------------------------------------
+
+    @property
+    def stats(self) -> dict:
+        """Executor-cache occupancy and per-key construction counts."""
+        with self._stats_lock:
+            return {"executors": len(self._executors),
+                    "traces": dict(self._trace_counts)}
+
+    def space_report(self) -> dict[str, int]:
+        """Index space on its device, bytes per component."""
+        return wtbc.space_report(self._idx)
+
+
+_CTOR_TOKEN = object()

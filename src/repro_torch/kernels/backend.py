@@ -1,0 +1,192 @@
+"""Kernel selection, launch counters and the CUDA build of the port.
+
+**Selection follows the tensor's device** (the port's counterpart of
+``repro/kernels/backend.py``'s lowering plans):
+
+* a CUDA tensor launches the hand-written kernel, or the wrapper raises —
+  there is no fallback;
+* a CPU tensor runs the kernel's plain PyTorch version;
+* ``kernel_backend="ref"`` asks for the plain version even on the card.  Only
+  comparison runs use it (``chip_smoke.py`` holds each kernel against its
+  plain version on the same inputs).
+
+**Build.**  Each ``csrc/*.cu`` source is compiled by ``nvcc`` into its own
+shared library with a plain C interface, loaded with ``ctypes`` (no PyTorch
+headers, so a build takes seconds).  Libraries go to ``build/repro_torch/``
+at the root of the source checkout the package runs from (for an installed
+copy, under the working directory), named by a hash of the sources and
+flags, and are built at first use; :func:`build` compiles every missing one
+with all ``nvcc`` processes started together.
+
+**Launch counters.**  Every kernel has a plain integer count that its wrapper
+bumps once per launch and nowhere else, so a run can show that its main path
+went through the kernels (:func:`launch_counts`, :func:`reset_launch_counts`).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+KERNEL_BACKENDS = ("auto", "ref")
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_CHECKOUT = Path(__file__).resolve().parents[3]
+BUILD_DIR = (_CHECKOUT if (_CHECKOUT / "pyproject.toml").is_file()
+             else Path.cwd()) / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def check_kernel_backend(kernel_backend: str) -> None:
+    if kernel_backend not in KERNEL_BACKENDS:
+        raise ValueError(f"kernel_backend must be one of {KERNEL_BACKENDS}, "
+                         f"got {kernel_backend!r}")
+
+
+def use_kernel(t: torch.Tensor, kernel_backend: str = "auto") -> bool:
+    """True: launch the CUDA kernel on ``t``'s card.  False: run the plain
+    version — because ``t`` lies on the CPU, or because the caller asked for
+    ``"ref"``."""
+    check_kernel_backend(kernel_backend)
+    if t.device.type == "cuda":
+        return kernel_backend == "auto"
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel for tensors on {t.device}")
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: the card unless the caller asks for
+    the CPU.  Raises when the card is asked for and absent."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run the plain PyTorch path")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+class CudaKernel:
+    """One ``csrc`` source, its shared library and its launch counter."""
+
+    def __init__(self, name: str, source: str, argtypes: tuple):
+        self.name = name
+        self.source = source
+        self.argtypes = argtypes
+        self.launches = 0
+        self._fn = None
+        self._err = None
+
+    def library_path(self) -> Path:
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for p in sorted(CSRC.glob("*.cuh")) + [CSRC / self.source]:
+            h.update(p.name.encode())
+            h.update(p.read_bytes())
+        return BUILD_DIR / f"{Path(self.source).stem}-{h.hexdigest()[:16]}.so"
+
+    def _load(self):
+        path = self.library_path()
+        if not path.exists():
+            build([self])
+        lib = ctypes.CDLL(str(path))
+        fn = getattr(lib, self.name)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        err = getattr(lib, f"{self.name}_error_string")
+        err.argtypes = (ctypes.c_int,)
+        err.restype = ctypes.c_char_p
+        self._fn, self._err = fn, err
+
+    def launch(self, *args) -> None:
+        """Call the C entry point (which launches on the current stream and
+        returns ``cudaGetLastError()``), raise on an error, count the launch."""
+        if self._fn is None:
+            self._load()
+        code = self._fn(*args, stream())
+        if code != 0:
+            raise RuntimeError(f"{self.name}: CUDA error {code}: "
+                               f"{self._err(code).decode()}")
+        self.launches += 1
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# levels: (data, counts, n_blocks, length) x 3, block; then the word tables
+_LEVEL_ARGS = (_P, _P, _I, _I) * 3 + (_I,)
+_TABLE_ARGS = (_P, _P, _P, _P)
+
+WAVELET_COUNT = CudaKernel(
+    "wavelet_count", "wavelet_descent.cu",
+    _LEVEL_ARGS + _TABLE_ARGS + (_P, _P, _P, _P, _I, _P))
+BEAM_LOOP = CudaKernel(
+    "beam_loop", "beam_step.cu",
+    _LEVEL_ARGS + _TABLE_ARGS
+    + (_P, _I, _I)                    # sep_pos, n, n_docs
+    + (_P, _P, _P, _I)                # words, wmask, idf_w, Q
+    + (_P, _P, _P, _P, _P, _I)        # pool scores/d0/d1/tf/size, cap
+    + (_P, _P, _I)                    # out_docs, out_scores, k
+    + (_P, _P, _P, _P, _P)            # n_out, iters, pops, overflowed, status
+    + (_I, _I, _I, _I, _P))           # conjunctive, max_pops, max_trips, B
+KERNELS = (WAVELET_COUNT, BEAM_LOOP)
+
+
+def launch_counts() -> dict[str, int]:
+    return {k.name: k.launches for k in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only where "
+                           "the CUDA toolkit is installed")
+    return path
+
+
+def build(kernels=KERNELS) -> float:
+    """Compile every kernel whose library is missing, one ``nvcc`` per
+    source, all started together.  Returns the wall seconds taken.  Each
+    compiler's output (``-Xptxas -v``: registers, shared memory, spills) is
+    kept next to its library as ``<library>.log``."""
+    t0 = time.perf_counter()
+    todo = [k for k in kernels if not k.library_path().exists()]
+    if not todo:
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = []
+    for k in todo:
+        out = k.library_path()
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        log = open(out.with_suffix(".log"), "w")
+        cmd = [nvcc, *NVCC_FLAGS, f"-I{CSRC}", "-o", str(tmp),
+               str(CSRC / k.source)]
+        procs.append((k, tmp, out, log,
+                      subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)))
+    failed = []
+    for k, tmp, out, log, proc in procs:
+        proc.wait()
+        log.close()
+        if proc.returncode != 0:
+            tail = out.with_suffix(".log").read_text()[-4000:]
+            failed.append(f"{k.source}:\n{tail}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return time.perf_counter() - t0
