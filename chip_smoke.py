@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""On-card smoke run of the PyTorch/CUDA port (slice 1: WTBC-DR search).
+"""On-card smoke run of the PyTorch/CUDA port (WTBC-DR and WTBC-DRB search).
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -9,7 +9,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 Phases (any failure exits non-zero; no phase is caught and ignored, and
 nothing falls back to the CPU):
 
-1. build  — compile both CUDA kernels from ``src/repro_torch/csrc`` (one
+1. build  — compile the six CUDA kernels from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all at once); print the card's name and power limit.
 2. data   — a quarter of the paper's ALL collection (718,691-word vocabulary,
    Zipf 1.2, mean 633 tokens per document): 86,445 documents, about 55 M
@@ -30,6 +30,23 @@ nothing falls back to the CPU):
    version at the main path's shapes, the least time the card could take
    for the same work (bytes at 3.35 TB/s, byte compares at 1,979 TOPS),
    and ms per batch per core.
+7. DRB aux — the tf bitmaps of WTBC-DRB built on the host for the same
+   corpus; build time and bytes beside the index's bytes.
+8. K3 ``bitmap_rank1``, K5 ``byte_rank``, K4 ``segment_tf`` and K6
+   ``scored_topk`` against their plain versions on the card, bitwise:
+   random inputs with their edges, plus every call that real DRB searches
+   (and/or, tf-idf and BM25) and a snippet decode made, recorded in phase 7
+   — K1 at each DRB and trip's triples, K6 at each DRB or batch with its
+   mask; K4 over every document bound; K6 at C = 10^6, d = 128.
+9. the DRB path — launch counters reset, then ``search(strategy="drb")``
+   under tf-idf and BM25 on the four batches of phase 2 and ``snippets`` of
+   every hit, as a user calls them: DRB tf-idf equals the mega core, BM25
+   equals a brute-force BM25 computed on the host in numpy from the
+   corpus's tokens (two queries per batch), snippets equal the corpus's
+   tokens, and K1, K3, K5 and K6 were launched.
+10. timings of the new kernels (device time, wrapper time, plain time,
+   bound, K6's library time), DRB ms per batch, and the device's idle share
+   on one DRB ``or`` batch.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -56,6 +73,7 @@ SEED = 20_260_417
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 INT8_OPS_PER_S = 1.979e15    # H100 SXM data sheet, dense int8
+FP32_OPS_PER_S = 67e12       # H100 SXM data sheet, float32 outside tensor cores
 B, K = 8, 10
 
 
@@ -149,27 +167,31 @@ def quarter_all_corpus(n_docs: int, seed: int):
     return SyntheticCorpus(doc_tokens=docs, vocab_size=ALL_VOCAB, seed=seed)
 
 
-class TripRecorder:
-    """Records the (words, los, his) of every count batch a search makes,
-    by wrapping ``kernels.ops.wavelet_count_batch`` for the duration."""
+class OpsRecorder:
+    """Records the arguments of every call to one ``kernels.ops`` entry
+    point (by default ``wavelet_count_batch``'s (words, los, his)) while a
+    search runs, by wrapping it for the duration: ``keep`` gets the call's
+    arguments and returns those to record (tensors are cloned)."""
 
-    def __init__(self):
+    def __init__(self, name: str = "wavelet_count_batch",
+                 keep=lambda *a, **kw: a[5:8]):
+        self.name, self.keep = name, keep
         self.calls = []
 
     def __enter__(self):
         from repro_torch.kernels import ops
-        self._ops, self._orig = ops, ops.wavelet_count_batch
+        self._ops, self._orig = ops, getattr(ops, self.name)
 
-        def wrapped(levels, cw, cw_len, node_off, base_rank, words, los, his,
-                    **kw):
-            self.calls.append((words.clone(), los.clone(), his.clone()))
-            return self._orig(levels, cw, cw_len, node_off, base_rank, words,
-                              los, his, **kw)
-        ops.wavelet_count_batch = wrapped
+        def wrapped(*args, **kw):
+            self.calls.append(tuple(x.clone() if hasattr(x, "clone") else x
+                                    for x in self.keep(*args, **kw)))
+            return self._orig(*args, **kw)
+        setattr(ops, self.name, wrapped)
         return self
 
     def __exit__(self, *exc):
-        self._ops.wavelet_count_batch = self._orig
+        setattr(self._ops, self.name, self._orig)
+
 
 
 def descent_bytes(idx, words, los, his, *, distinct_nonempty=False
@@ -208,9 +230,75 @@ def descent_bytes(idx, words, los, his, *, distinct_nonempty=False
             cells = torch.unique(blk[need] * 256 + torch.cat([byte, byte])[need])
             nbytes += int(widest.sum()) + 4 * int(cells.numel())
             compares += int(cut[need].sum())
-        r = bytemap.rank(lv, torch.cat([byte, byte]), pos)
+        r = bytemap.rank(lv, torch.cat([byte, byte]), pos,
+                         kernel_backend="ref")
         a, b = r[:M] - base, r[M:] - base
     return nbytes, compares
+
+
+def prefix_bytes(bm, byte, pos) -> tuple[int, int]:
+    """(bytes, byte compares) that byte ranks of ``byte`` at ``pos`` in one
+    level need: per block the widest tile prefix [0, p - blk*block) and each
+    distinct counter cell, each read once; compares: every prefix byte of
+    every rank."""
+    import torch
+    pos = pos.to(torch.int64).reshape(-1).clamp(0, bm.length)
+    byte = torch.as_tensor(byte, device=pos.device).to(torch.int64)
+    blk = torch.clamp(pos // bm.block, max=bm.n_blocks - 1)
+    cut = pos - blk * bm.block
+    widest = torch.zeros(bm.n_blocks, dtype=torch.long, device=pos.device)
+    widest.scatter_reduce_(0, blk, cut, "amax")
+    cells = torch.unique(blk * 256 + byte.reshape(-1).expand_as(blk))
+    return int(widest.sum()) + 4 * int(cells.numel()), int(cut.sum())
+
+
+def bm25_bruteforce(tokens, ends, n_docs: int, words, *, mode: str, k: int,
+                    eps: float = 1e-6, k1: float = 1.2, b: float = 0.75):
+    """Top-k BM25 of one query by scoring every document on the host, in
+    numpy float32 from the corpus's own tokens, independent of the program:
+    ``tokens`` the concatenated documents, ``ends`` their cumulative
+    lengths.  Per word: tf per document (its token positions binned by
+    document), df, BM25's idf (the argument in float32 steps, the log in
+    float64, rounded to float32) and the DRB word rule (a word with
+    ln(N / df) < eps has no bitmap and drops out); avg_dl the exact integer
+    sum of the lengths over N in float32.  Each per-word part is
+    ``tf (k1 + 1) / (tf + k1 ((1 - b) + b (dl / avg_dl)))``, one rounded
+    float32 operation at a time, the score the parts times the idfs added
+    left to right.  Eligible: ``and`` every kept word occurs, ``or`` some
+    kept word occurs; ties go to the lower document.  Returns (docs,
+    scores) padded with -1 / -inf to k."""
+    f32 = np.float32
+    n = f32(n_docs)
+    dl = np.diff(np.concatenate([[0], ends])).astype(np.int64)
+    avg = f32(f32(dl.sum()) / n)
+    norm = f32(1.0 - b) + f32(b) * (dl.astype(f32) / avg)
+    score = np.zeros(n_docs, f32)
+    occurs = []
+    for w in words:
+        tf = np.bincount(np.searchsorted(ends, np.flatnonzero(tokens == w),
+                                         side="right"), minlength=n_docs)
+        df = int(np.count_nonzero(tf))
+        if df == 0:
+            if mode == "and":            # an absent word empties the result
+                return np.full(k, -1), np.full(k, -np.inf, f32)
+            continue
+        if not np.log(max(n_docs, 1) / df) >= eps:
+            continue                     # no bitmap: the word drops out
+        dff = f32(df)
+        idf = f32(np.log(np.float64(f32(1.0) + (n - dff + f32(0.5))
+                                    / (dff + f32(0.5)))))
+        tff = tf.astype(f32)
+        part = tff * f32(k1 + 1.0) / (tff + f32(k1) * norm)
+        score = score + part * idf
+        occurs.append(tf > 0)
+    if not occurs:
+        return np.full(k, -1), np.full(k, -np.inf, f32)
+    ok = np.all(occurs, 0) if mode == "and" else np.any(occurs, 0)
+    docs = np.flatnonzero(ok)
+    top = docs[np.lexsort((docs, -score[docs]))][:k]
+    pad = k - len(top)
+    return (np.concatenate([top, np.full(pad, -1)]),
+            np.concatenate([score[top], np.full(pad, -np.inf, f32)]))
 
 
 def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
@@ -313,11 +401,11 @@ def main(argv=None) -> int:
     words_t = torch.from_numpy(ranks).to(dev)
     wmask_t = torch.from_numpy(masks).to(dev)
     idf = engine._idf_table(engine._resolve_measure("tfidf"))
-    with TripRecorder() as rec16:
+    with OpsRecorder() as rec16:
         ranked.topk_dr_batch(idx, words_t, wmask_t, idf, k=K, conjunctive=False,
                              heap_cap=2 * idx.n_docs + 4, beam_width=16,
                              max_pops=9 * 16)
-    with TripRecorder() as rec1:
+    with OpsRecorder() as rec1:
         mega.topk_dr_mega(idx, words_t, wmask_t, idf, k=K, conjunctive=False,
                           cap=idx.n_docs + 2, max_pops=8, kernel_backend="ref")
     k1_sets = [("random", (w, lo, hi))] + \
@@ -476,7 +564,7 @@ def main(argv=None) -> int:
           "beam_loop_kernel")
     k2_plain = time_cuda(lambda: run("ref"), reps=1, warm=0, setup=fresh)
     final = holder["st"]
-    with TripRecorder() as rec:
+    with OpsRecorder() as rec:
         fresh()
         run("ref")
     tw = torch.cat([c[0] for c in rec.calls])
@@ -507,17 +595,360 @@ def main(argv=None) -> int:
     # how busy the card is on each core's main path (or, band ii batch)
     q = batches[1][2]
     for label, prof in zip(core_ms, profiles):
-        dev, wall = profile_device(
+        busy, wall = profile_device(
             lambda: engine.search(q, k=K, mode="or", **prof), 1)
-        log(f"core {label} (or, band ii): device busy {dev:.3f} ms of "
-            f"{wall:.3f} ms wall, idle share {1 - dev / wall:.4f}")
+        log(f"core {label} (or, band ii): device busy {busy:.3f} ms of "
+            f"{wall:.3f} ms wall, idle share {1 - busy / wall:.4f}")
     log("launches per batch: " + json.dumps(per_batch))
+
+    drb_rows, k1_drb_err = drb_phases(engine, cp, batches, kind)
+    kernels[0]["max_abs_err"] = max(k1_err, k1_drb_err)
+    kernels += drb_rows
     log(json.dumps({"launches": counts,
                     "kernels": [k["name"] for k in kernels]}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+def drb_phases(engine, cp, batches, kind) -> tuple[list[dict], int]:
+    """Phases 7-10: the DRB aux, K3/K5/K4/K6 (and K1 at the DRB trips)
+    against their plain versions, the DRB path as a user calls it, and the
+    timings.  Returns the new kernels' rows of the ``{"kernels": ...}``
+    line and K1's largest error at the DRB trips."""
+    import torch
+    from repro_torch.core import wtbc
+    from repro_torch.kernels import (backend, bitmap_rank, byte_rank,
+                                     segment_tf, topk_score)
+    dev = engine.device
+    idx = engine.idx
+    measures = {m: engine._resolve_measure(m) for m in ("tfidf", "bm25")}
+
+    # ---- 7. DRB aux ---------------------------------------------------------
+    t0 = time.perf_counter()
+    aux = engine.aux
+    torch.cuda.synchronize()
+    t_aux = time.perf_counter() - t0
+    rep = engine.space_report()
+    drb_bytes = sum(v for k_, v in rep.items() if k_.startswith("drb_"))
+    idx_bytes = rep["total"] - drb_bytes
+    log(f"DRB aux: built on the host in {t_aux:.2f} s; {drb_bytes} bytes "
+        f"({aux.bv.n_bits} bits) beside the index's {idx_bytes} bytes on "
+        f"{kind}: +{100.0 * drb_bytes / idx_bytes:.2f}%")
+
+    # the inputs every kernel gets from real DRB searches (and and or, tf-idf
+    # and BM25) and from a snippet decode.  These calls launch the kernels;
+    # phase 9 resets the counters before the measured run.
+    with OpsRecorder("bitmap_rank1_batch", lambda bv, pos, **kw: (pos,)) \
+            as rec_k3, \
+            OpsRecorder("rank_batch", lambda bm, b, p, **kw: (bm, b, p)) \
+            as rec_k5, OpsRecorder() as rec_k1, \
+            OpsRecorder("scored_topk", lambda c, q, **kw: (
+                c, q, kw["valid"], kw["k"], kw["tile"])) as rec_k6:
+        for (mode, band, q), mname in ((batches[0], "tfidf"),
+                                       (batches[1], "tfidf"),
+                                       (batches[1], "bm25")):
+            res = engine.search(q, k=K, mode=mode, strategy="drb",
+                                measure=mname)
+        engine.snippets(res, length=8)
+    k5_snip = [c for c in rec_k5.calls if c[1].numel()]
+    log(f"recorded from DRB searches: {len(rec_k1.calls)} wavelet_count, "
+        f"{len(rec_k3.calls)} bitmap_rank1, {len(rec_k5.calls)} byte_rank, "
+        f"{len(rec_k6.calls)} scored_topk calls")
+
+    # ---- 8. K3, K5, K4, K6 against their plain versions --------------------
+    rng = np.random.default_rng(SEED + 8)
+    n_bits = aux.bv.n_bits
+    e = np.arange(0, n_bits + 1, 1024 * 997)
+    pos3 = np.concatenate([[0, n_bits, 1, max(n_bits - 1, 0)], e,
+                           np.maximum(e - 1, 0), np.minimum(e + 1, n_bits),
+                           rng.integers(0, n_bits + 1, 4096)])
+    k3_sets = [("random", torch.from_numpy(pos3.astype(np.int32)).to(dev))] \
+        + [("DRB trip", c[0]) for c in rec_k3.calls]
+
+    def k3(pos, kb):
+        return bitmap_rank.bitmap_rank1(aux.bv.words, aux.bv.counts, n_bits,
+                                        pos, kernel_backend=kb)
+    errs = {}
+    for name, pos in k3_sets:
+        got, want = k3(pos, "auto"), k3(pos, "ref")
+        torch.cuda.synchronize()
+        errs["bitmap_rank1"] = max(errs.get("bitmap_rank1", 0), int(
+            (got - want).abs().max()) if got.numel() else 0)
+        check(torch.equal(got, want), f"bitmap_rank1 differs from its plain "
+              f"version on {name} positions")
+    log(f"K3 bitmap_rank1 == plain on {len(k3_sets)} position sets "
+        f"({sum(p.numel() for _, p in k3_sets)} positions): bitwise")
+
+    # K1 at the triples of real DRB and trips: B·(P·Q + Q) per trip
+    k1_err = 0
+    for words, los, his in rec_k1.calls:
+        got, want = (wtbc.count_range_batch(idx, words, los, his,
+                                            kernel_backend=kb)
+                     for kb in ("auto", "ref"))
+        torch.cuda.synchronize()
+        k1_err = max(k1_err, int((got - want).abs().max()))
+        check(torch.equal(got, want), "wavelet_count differs from its plain "
+              "version on the triples of a DRB and trip")
+    check(len(rec_k1.calls) > 0, "no DRB trip launched wavelet_count")
+    log(f"K1 wavelet_count == plain on the triples of {len(rec_k1.calls)} "
+        f"DRB and trips ({sum(c[0].numel() for c in rec_k1.calls)} "
+        f"triples): bitwise")
+
+    root = idx.levels[0]
+    pos5 = np.concatenate([[0, root.length, 1, root.length - 1],
+                           rng.integers(0, root.length + 1, 4092)])
+    byte5 = rng.integers(0, 256, len(pos5))
+    byte5[: len(pos5) // 2] = rng.choice(
+        root.data[:4096].cpu().numpy(), len(pos5) // 2)   # bytes that occur
+    k5_sets = [("random", (root, torch.from_numpy(byte5.astype(np.int32)).to(
+        dev), torch.from_numpy(pos5.astype(np.int32)).to(dev)))] \
+        + [("snippet decode", c) for c in k5_snip]
+
+    def k5(case, kb):
+        bm, b, p = case
+        return byte_rank.byte_rank(bm.data, bm.counts, bm.length, b, p,
+                                   block=bm.block, kernel_backend=kb)
+    for name, case in k5_sets:
+        got, want = k5(case, "auto"), k5(case, "ref")
+        torch.cuda.synchronize()
+        errs["byte_rank"] = max(errs.get("byte_rank", 0),
+                                int((got - want).abs().max()))
+        check(torch.equal(got, want), f"byte_rank differs from its plain "
+              f"version on {name} queries")
+    log(f"K5 byte_rank == plain on {len(k5_sets)} query sets "
+        f"({sum(c[2].numel() for _, c in k5_sets)} ranks): bitwise")
+
+    # a 1-byte word (stopper byte at the root) of band ii
+    one_byte = torch.nonzero((idx.cw_len == 1) & (idx.df > 100)).reshape(-1)
+    w4 = int(one_byte[len(one_byte) // 2])
+    byte4 = int(idx.cw[w4, 0])
+    bounds = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
+                        idx.sep_pos + 1]).to(torch.int32)
+
+    def k4(kb):
+        return segment_tf.segment_tf(root.data, root.counts, root.length,
+                                     byte4, bounds, block=root.block,
+                                     kernel_backend=kb)
+    got, want = k4("auto"), k4("ref")
+    d_all = torch.arange(idx.n_docs, dtype=torch.int32, device=dev)
+    tf_k1 = wtbc.count_doc(idx, torch.full_like(d_all, w4), d_all)
+    torch.cuda.synchronize()
+    errs["segment_tf"] = int((got - want).abs().max())
+    check(torch.equal(got, want), "segment_tf differs from its plain version")
+    check(torch.equal(got, tf_k1), "segment_tf differs from the count descent")
+    log(f"K4 segment_tf == plain == count descent: word rank {w4} (byte "
+        f"{byte4}) over {bounds.numel()} document bounds, df "
+        f"{int((got > 0).sum())}: bitwise")
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    cands = torch.randn((1_000_000, 128), generator=g, device=dev)
+    qv = torch.randn(128, generator=g, device=dev)
+
+    def k6(kb, c=cands, q=qv, **kw):
+        return topk_score.scored_topk(c, q, k=K, tile=1024, kernel_backend=kb,
+                                      **kw)
+    (s6, i6), (ws6, wi6) = k6("auto"), k6("ref")
+    lib_s, lib_i = torch.topk(torch.mv(cands, qv), K)
+    torch.cuda.synchronize()
+    errs["scored_topk"] = float((s6 - ws6).abs().max())
+    check(torch.equal(s6, ws6) and torch.equal(i6, wi6),
+          "scored_topk differs from its plain version at C = 10^6")
+    # and at every call of the DRB or searches: (B, n_docs, Q) parts
+    # against (B, Q) weights, with the mask of the documents that occur
+    for c6, q6, ok6, kk, tl in rec_k6.calls:
+        (s, i), (ws, wi) = (topk_score.scored_topk(
+            c6, q6, k=kk, tile=tl, valid=ok6, kernel_backend=kb)
+            for kb in ("auto", "ref"))
+        torch.cuda.synchronize()
+        fin = torch.isfinite(ws)
+        check(torch.equal(torch.isfinite(s), fin), "scored_topk fills "
+              "other slots than its plain version on a DRB or batch")
+        errs["scored_topk"] = max(errs["scored_topk"],
+                                  float((s - ws)[fin].abs().max())
+                                  if bool(fin.any()) else 0.0)
+        check(torch.equal(s, ws) and torch.equal(i, wi),
+              f"scored_topk differs from its plain version on a DRB or "
+              f"batch of shape {tuple(c6.shape)}")
+    check(len(rec_k6.calls) > 0, "no DRB or search launched scored_topk")
+    log(f"K6 scored_topk == plain on {len(rec_k6.calls)} DRB or batches of "
+        f"shape {tuple(rec_k6.calls[0][0].shape)} with their masks: bitwise")
+    log(f"K6 scored_topk == plain at C = 10^6, d = 128, k = {K}: bitwise; "
+        f"indices equal to torch.topk(torch.mv): "
+        f"{bool(torch.equal(i6, lib_i.to(torch.int32)))}, max |score - "
+        f"library score| {float((s6 - lib_s).abs().max()):.3e}")
+
+    # ---- 9. the DRB path as a user calls it ------------------------------
+    mega = {}
+    for i, (mode, band, q) in enumerate(batches):
+        mega[i] = engine.search(q, k=K, mode=mode, mega=True)
+    torch.cuda.synchronize()
+    backend.reset_launch_counts()
+    drb_ms, drb_res, per_batch = {}, {}, {}
+    for mname in measures:
+        for i, (mode, band, q) in enumerate(batches):
+            before = backend.launch_counts()
+            ms, res = wall_ms(lambda: engine.search(
+                q, k=K, mode=mode, strategy="drb", measure=mname))
+            after = backend.launch_counts()
+            key = f"{mname} {mode} {band}"
+            drb_ms[key], drb_res[(mname, i)] = ms, res
+            per_batch[key] = {k_: after[k_] - before[k_] for k_ in after}
+            log(f"DRB {key}: {ms:.2f} ms per batch of {B}; n_found "
+                f"{res.n_found.tolist()}; trips {res.work.tolist()}")
+    snips = {}
+    for i in (1, 3):
+        res = drb_res[("bm25", i)]
+        snips[i] = (res, engine.snippets(res, length=8))
+    drb_counts = backend.launch_counts()
+    log("DRB path launches: " + json.dumps(drb_counts))
+    for name in ("wavelet_count", "bitmap_rank1", "byte_rank", "scored_topk"):
+        check(drb_counts[name] > 0, f"{name} never launched on the DRB path")
+
+    for i, (mode, band, q) in enumerate(batches):
+        res, ref_ = drb_res[("tfidf", i)], mega[i]
+        for leaf in ("docs", "scores", "n_found"):
+            check(torch.equal(getattr(res, leaf), getattr(ref_, leaf)),
+                  f"DRB tf-idf differs from the mega core on {leaf} ({mode}, "
+                  f"band {band})")
+        for mname in measures:
+            r = drb_res[(mname, i)]
+            found = r.scores[r.scores > -np.inf]
+            check(bool(torch.isfinite(found).all()), "non-finite DRB scores")
+            check(tuple(r.docs.shape) == (B, K), "DRB result shape")
+    log("DRB tf-idf == mega core on all four batches: docs, scores, n_found "
+        "bitwise")
+    tokens = np.concatenate(cp.doc_tokens)
+    ends = np.cumsum([len(t) for t in cp.doc_tokens])
+    for i, (mode, band, q) in enumerate(batches):
+        res = drb_res[("bm25", i)]
+        for row in range(2):
+            bd, bs = bm25_bruteforce(tokens, ends, idx.n_docs, q[row],
+                                     mode=mode, k=K, eps=engine.config.eps)
+            got_d = res.docs[row].cpu().numpy()
+            got_s = res.scores[row].cpu().numpy()
+            check(np.array_equal(bd, got_d) and np.array_equal(bs, got_s),
+                  f"DRB BM25 differs from brute force ({mode}, band {band}, "
+                  f"row {row}): {bd.tolist()} {bs.tolist()} vs "
+                  f"{got_d.tolist()} {got_s.tolist()}")
+        log(f"host brute-force BM25 over {idx.n_docs} docs == DRB BM25 "
+            f"({mode}, band {band}, rows 0-1): docs and scores bitwise")
+    del tokens
+    n_snip = 0
+    for i, (res, sn) in snips.items():
+        for b in range(len(res)):
+            for (d, _), toks in zip(res.hits(b), sn[b]):
+                check(np.array_equal(toks, cp.doc_tokens[d][:8]),
+                      f"snippet of doc {d} differs from its tokens")
+                n_snip += 1
+    check(n_snip > 0, "no snippet was decoded")
+    log(f"snippets(length=8) == corpus tokens for {n_snip} hits")
+
+    # ---- 10. timings ---------------------------------------------------------
+    rows = []
+    k3_trip = rec_k3.calls[0][0]
+    for name, pos in (("M=%d (DRB and trip)" % k3_trip.numel(), k3_trip),
+                      ("M=%d (random)" % k3_sets[0][1].numel(),
+                       k3_sets[0][1])):
+        call_ms = time_cuda(lambda: k3(pos, "auto"), reps=200, warm=20)
+        kms, _ = profile_device(lambda: k3(pos, "auto"), 100,
+                                "bitmap_rank1_kernel")
+        pms = time_cuda(lambda: k3(pos, "ref"), reps=20, warm=3)
+        blocks = torch.unique(torch.clamp(pos.long().clamp(0, n_bits) // 1024,
+                                          max=aux.bv.counts.numel() - 2))
+        nb = blocks.numel() * (128 + 4) + 8 * pos.numel()
+        bms, by = bound_ms(nb, 32 * pos.numel())
+        rows.append(("bitmap_rank1", name, kms, call_ms, pms, bms, by))
+    k5_case = k5_snip[0] if k5_snip else k5_sets[0][1]
+    for name, case in (("M=%d (snippet decode, level 0)" % k5_case[2].numel(),
+                        k5_case),
+                       ("M=%d (random)" % k5_sets[0][1][2].numel(),
+                        k5_sets[0][1])):
+        call_ms = time_cuda(lambda: k5(case, "auto"), reps=200, warm=20)
+        kms, _ = profile_device(lambda: k5(case, "auto"), 100,
+                                "byte_rank_kernel")
+        pms = time_cuda(lambda: k5(case, "ref"), reps=20, warm=3)
+        nb, ops = prefix_bytes(case[0], case[1], case[2])
+        bms, by = bound_ms(nb + 12 * case[2].numel(), ops)
+        rows.append(("byte_rank", name, kms, call_ms, pms, bms, by))
+    call_ms = time_cuda(lambda: k4("auto"), reps=50, warm=5)
+    kms, _ = profile_device(lambda: k4("auto"), 20, "segment_tf_kernel")
+    pms = time_cuda(lambda: k4("ref"), reps=5, warm=1)
+    nb, ops = prefix_bytes(root, byte4, bounds)
+    bms, by = bound_ms(nb + 8 * bounds.numel(), ops)
+    rows.append(("segment_tf", f"D={bounds.numel() - 1} (every document)",
+                 kms, call_ms, pms, bms, by))
+    call_ms = time_cuda(lambda: k6("auto"), reps=20, warm=3)
+    kms, _ = profile_device(lambda: k6("auto"), 10, "scored_topk_kernel")
+    pms = time_cuda(lambda: k6("ref"), reps=3, warm=1)
+    lib_ms = time_cuda(lambda: torch.topk(torch.mv(cands, qv), K), reps=20,
+                       warm=3)
+    nbytes6 = cands.numel() * 4 + 128 * 4 + 1000 * K * 8
+    t_b, t_o = nbytes6 / HBM_BYTES_PER_S * 1e3, \
+        2 * cands.numel() / FP32_OPS_PER_S * 1e3
+    rows.append(("scored_topk", "C=1000000, d=128, k=10, tile 1024", kms,
+                 call_ms, pms, max(t_b, t_o),
+                 "bytes" if t_b >= t_o else "operations"))
+    # K6 at the DRB or shape: the recorded BM25 batch (compared in phase 8)
+    part, w6, ok6, kk6, tl6 = rec_k6.calls[-1]
+
+    def k6_drb(kb):
+        return topk_score.scored_topk(part, w6, k=kk6, tile=tl6, valid=ok6,
+                                      kernel_backend=kb)
+    call_s = time_cuda(lambda: k6_drb("auto"), reps=100, warm=10)
+    kms_s, _ = profile_device(lambda: k6_drb("auto"), 50,
+                              "scored_topk_kernel")
+    pms_s = time_cuda(lambda: k6_drb("ref"), reps=10, warm=2)
+    t_b = (part.numel() * 4 + ok6.numel() + w6.numel() * 4 + part.shape[0]
+           * -(-part.shape[1] // tl6) * kk6 * 8) / HBM_BYTES_PER_S * 1e3
+    t_o = 2 * part.numel() / FP32_OPS_PER_S * 1e3
+    rows.append(("scored_topk", f"B={part.shape[0]}, C={part.shape[1]}, "
+                 f"d={part.shape[2]}, k={kk6} (DRB or batch, one launch)",
+                 kms_s, call_s, pms_s, max(t_b, t_o),
+                 "bytes" if t_b >= t_o else "operations"))
+    for kname, shape, kms, call_ms, pms, bms, by in rows:
+        check(kms > 0, f"the profiler recorded no device time for {kname}")
+        log(f"{kname} {shape}: kernel {kms:.6f} ms on the device "
+            f"({call_ms:.4f} ms per wrapper call), plain {pms:.4f} ms, bound "
+            f"{bms:.6f} ms ({by})")
+    log(f"K6 library torch.topk(torch.mv(cands, q), {K}): {lib_ms:.6f} ms")
+    log("DRB launches per batch: " + json.dumps(per_batch))
+    q = batches[1][2]
+    for mname in measures:
+        busy, wall = profile_device(lambda: engine.search(
+            q, k=K, mode="or", strategy="drb", measure=mname), 1)
+        log(f"DRB {mname} (or, band ii): device busy {busy:.3f} ms of "
+            f"{wall:.3f} ms wall, idle share {1 - busy / wall:.4f}")
+
+    meta = {
+        "bitmap_rank1": ("src/repro_torch/csrc/bitmap_rank.cu",
+                         "src/repro/kernels/bitmap_rank.py:26",
+                         "no PyTorch call ranks a packed bit vector"),
+        "byte_rank": ("src/repro_torch/csrc/byte_rank.cu",
+                      "src/repro/kernels/byte_rank.py:34",
+                      "no PyTorch call ranks a byte sequence with counters"),
+        "segment_tf": ("src/repro_torch/csrc/segment_tf.cu",
+                       "src/repro/kernels/segment_tf.py:31",
+                       "no PyTorch call counts a byte per span of bounds"),
+        "scored_topk": ("src/repro_torch/csrc/topk_score.cu",
+                        "src/repro/kernels/topk_score.py:34", None),
+    }
+    out = []
+    for kname, (src, repl, why) in meta.items():
+        mine = [r for r in rows if r[0] == kname]
+        _, _, kms, call_ms, pms, bms, by = mine[0]
+        out.append({"name": kname, "route": "cuda", "source": src,
+                    "replaces": repl, "launches": drb_counts[kname],
+                    "max_abs_err": errs[kname], "ms": kms, "plain_ms": pms,
+                    "bound_ms": bms, "bound_by": by,
+                    "library_ms": lib_ms if why is None else None,
+                    "library_note": why, "wrapper_ms": call_ms,
+                    "shapes": [{"shape": r[1], "ms": r[2], "wrapper_ms": r[3],
+                                "plain_ms": r[4], "bound_ms": r[5],
+                                "bound_by": r[6]} for r in mine]})
+    del cands
+    return out, k1_err
 
 
 if __name__ == "__main__":

@@ -12,6 +12,9 @@ never needs ``repro`` itself:
 ``model_arrays``
     the ``SCDCModel`` fields ``s``, ``c``, ``codes``, ``lens``,
     ``rank_of_word``, ``word_of_rank``, ``freqs``.
+``aux_arrays`` (DRB tf bitmaps)
+    ``words`` (the ``BitVec`` words, uint32), ``counts``, ``n_bits``, and
+    the ``DRBAux`` fields ``bit_off``, ``has_bm``, ``eps``.
 """
 from __future__ import annotations
 
@@ -19,7 +22,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import scdc
+from repro_torch.core.bitvec import BitVec
 from repro_torch.core.bytemap import ByteMap
+from repro_torch.core.drb import DRBAux
 from repro_torch.core.wtbc import WTBCIndex
 
 
@@ -69,3 +74,17 @@ def idf_table(table, idx: WTBCIndex) -> torch.Tensor:
         raise ValueError(f"idf table of shape {t.shape}, expected "
                          f"({idx.vocab_size},)")
     return _t(t, np.float32, idx.device)
+
+
+def aux_from_reference(aux_arrays: dict, *, device) -> DRBAux:
+    """A port ``DRBAux`` on ``device`` from numpy arrays under the
+    reference's field names (module docstring); the uint32 bitmap words
+    are kept as int32 bit patterns."""
+    a = aux_arrays
+    words = np.array(a["words"], dtype=np.uint32).view(np.int32)
+    bv = BitVec(words=torch.from_numpy(words).to(device),
+                counts=_t(a["counts"], np.int32, device),
+                n_bits=int(a["n_bits"]))
+    return DRBAux(bv=bv, bit_off=_t(a["bit_off"], np.int32, device),
+                  has_bm=_t(a["has_bm"], np.bool_, device),
+                  eps=float(a["eps"]))

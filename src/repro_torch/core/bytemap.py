@@ -11,7 +11,9 @@ in microseconds at ~3% space overhead.  Layout (the reference's, unchanged):
 
 Build is numpy on the host; queries are batched tensor code.  ``length`` and
 ``block`` are host integers, so no query ever waits on the device to learn a
-shape.  ``select`` and ``access`` arrive with the positional slice.
+shape.  ``rank`` goes through the ``byte_rank`` kernel on the card
+(``kernels/ops.py``); ``select`` and ``access`` are plain PyTorch on every
+device (the reference has no kernel for them).
 """
 from __future__ import annotations
 
@@ -20,11 +22,16 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.kernels import ops
+
 DEFAULT_BLOCK = 4096  # bytes per counter block
 
-# rows of in-block residuals computed per pass of ``rank`` (bounds the
-# (rows, block) compare temporary)
-_RANK_ROWS = 8192
+# rows of in-block scans per pass of ``select`` (bounds the (rows, block)
+# compare temporary)
+_SELECT_ROWS = 8192
+# sub-chunk of the in-block select scan: a (rows, block) compare is reduced
+# to per-sub-chunk counts, and only one sub-chunk is prefix-summed
+_SUB = 512
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,28 +76,12 @@ def build(data: np.ndarray, block: int = DEFAULT_BLOCK,
                    length=n, block=block)
 
 
-def rank(bm: ByteMap, byte: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+def rank(bm: ByteMap, byte: torch.Tensor, pos: torch.Tensor, *,
+         kernel_backend: str = "auto") -> torch.Tensor:
     """Occurrences of ``byte[i]`` in ``data[0:pos[i]]`` (pos clipped to
-    [0, length]); same-shape int32.
-
-    The tile index is clamped to the last block, which makes ``pos == length``
-    exact at a block edge (the counter row plus one full-tile count)."""
-    shape = pos.shape
-    byte = byte.reshape(-1).long()
-    pos = pos.reshape(-1).to(torch.int32).clamp(0, bm.length)
-    blk = torch.clamp(pos // bm.block, max=bm.n_blocks - 1).long()
-    base = bm.counts[blk, byte]
-    tiles = bm.data.view(bm.n_blocks, bm.block)
-    lane = torch.arange(bm.block, device=pos.device, dtype=torch.int32)
-    cut = pos - blk.to(torch.int32) * bm.block
-    parts = []
-    for s in range(0, pos.numel(), _RANK_ROWS):
-        e = s + _RANK_ROWS
-        hit = (tiles[blk[s:e]] == byte[s:e, None].to(torch.uint8)) \
-            & (lane[None, :] < cut[s:e, None])
-        parts.append(hit.sum(1, dtype=torch.int32))
-    intile = torch.cat(parts) if parts else cut.new_zeros(0)
-    return (base + intile).reshape(shape)
+    [0, length]); same-shape int32.  One ``byte_rank`` launch on the card
+    for the whole batch, its plain version on the CPU."""
+    return ops.rank_batch(bm, byte, pos, kernel_backend=kernel_backend)
 
 
 def count_range(bm: ByteMap, byte: torch.Tensor, lo: torch.Tensor,
@@ -99,5 +90,63 @@ def count_range(bm: ByteMap, byte: torch.Tensor, lo: torch.Tensor,
     return rank(bm, byte, hi) - rank(bm, byte, lo)
 
 
+def select(bm: ByteMap, byte: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
+    """Position of the ``j[i]``-th (1-based) occurrence of ``byte[i]``;
+    ``length`` where there is none; same-shape int32.
+
+    Per query: a binary search of the byte's counter column for the last
+    block with fewer than j occurrences before it (the reference's fixed
+    trip count), then a scan of that block — per-512-byte counts pick the
+    sub-chunk, a prefix sum over it the byte.  Batched over every query;
+    plain PyTorch on every device."""
+    shape = j.shape
+    byte = byte.reshape(-1).long()
+    j = j.reshape(-1).to(torch.int32)
+    n_blocks = bm.n_blocks
+    col_total = bm.counts[-1, byte]
+    lo = torch.zeros_like(j)
+    hi = torch.full_like(j, n_blocks - 1)
+    n_iter = max(1, int(np.ceil(np.log2(max(n_blocks, 2)))) + 1)
+    for _ in range(n_iter):
+        mid = torch.div(lo + hi + 1, 2, rounding_mode="floor")
+        right = bm.counts[mid.long(), byte] < j
+        lo, hi = torch.where(right, mid, lo), torch.where(right, hi, mid - 1)
+    need = j - bm.counts[lo.long(), byte]
+    sub = _SUB if bm.block % _SUB == 0 else bm.block
+    n_sub = bm.block // sub
+    tiles = bm.data.view(n_blocks, n_sub, sub)
+    parts = []
+    for s in range(0, j.numel(), _SELECT_ROWS):
+        e = s + _SELECT_ROWS
+        hits = tiles[lo[s:e].long()] == byte[s:e, None, None].to(torch.uint8)
+        per_sub = torch.cumsum(hits.sum(2, dtype=torch.int32), 1)
+        nd = need[s:e, None]
+        sub_i = (per_sub < nd).sum(1).clamp(max=n_sub - 1)
+        prior = torch.where(sub_i > 0, per_sub.gather(
+            1, (sub_i - 1).clamp(min=0)[:, None])[:, 0], 0)
+        row = torch.arange(hits.shape[0], device=j.device)
+        cums = torch.cumsum(hits[row, sub_i].to(torch.int32), 1)
+        at = (cums < (nd - prior[:, None])).sum(1)
+        parts.append(sub_i * sub + at)
+    inblock = torch.cat(parts) if parts else j.new_zeros(0)
+    pos = lo * bm.block + inblock
+    ok = (j >= 1) & (j <= col_total)
+    return torch.where(ok, pos, bm.length).to(torch.int32).reshape(shape)
+
+
+def access(bm: ByteMap, pos: torch.Tensor) -> torch.Tensor:
+    """``data[pos]`` (uint8), positions clipped into the sequence."""
+    return bm.data[pos.long().clamp(0, max(bm.length - 1, 0))]
+
+
+# ---------------------------------------------------------------------------
+# numpy oracles
+# ---------------------------------------------------------------------------
+
 def rank_np(data: np.ndarray, byte: int, pos: int) -> int:
     return int(np.count_nonzero(data[:pos] == byte))
+
+
+def select_np(data: np.ndarray, byte: int, j: int) -> int:
+    occ = np.flatnonzero(data == byte)
+    return int(occ[j - 1]) if 1 <= j <= len(occ) else len(data)

@@ -19,6 +19,13 @@ DRB strategy only.  ``assert_dr_compatible`` enforces that at the API level.
   ``.sum(-1)`` or ``@``, so no reduction order or FMA contraction can enter.
   The beam-loop kernel uses ``__fmul_rn`` / ``__fadd_rn`` in the same order,
   so the port's scores are bitwise equal across devices and batch shapes.
+* BM25's per-word part runs the reference's operations in the reference's
+  order, each a separate rounded float32 operation:
+  ``norm = (1 - b) + b * (doc_len / avg_dl)``, then
+  ``tf * (k1 + 1) / (tf + k1 * norm)``, with ``1 - b`` and ``k1 + 1``
+  formed in double precision and rounded once, as Python does for the
+  reference.  ``avg_dl`` is computed on the host from an exact integer sum
+  (:func:`avg_doc_len`).
 """
 from __future__ import annotations
 
@@ -36,6 +43,21 @@ def dot_q(tf: torch.Tensor, idf_w: torch.Tensor) -> torch.Tensor:
     for q in range(tf.shape[-1]):
         acc = acc + tf[..., q].to(torch.float32) * idf_w[..., q]
     return acc
+
+
+def avg_doc_len(doc_len: np.ndarray, n_docs: int) -> np.float32:
+    """Mean document length for BM25: the int64 sum of the lengths, then a
+    float32 division.  Below 2**24 tokens this is the reference's float32
+    ``jnp.sum`` / n_docs bit for bit; above, the reference's float32
+    summation depends on its order and the two may differ."""
+    total = np.float32(np.asarray(doc_len, dtype=np.int64).sum())
+    return np.float32(total / np.float32(max(int(n_docs), 1)))
+
+
+def _f32(x: float) -> float:
+    """``x`` rounded to float32 (a Python scalar, so no device copy): the
+    constant the reference's weakly typed float becomes."""
+    return float(np.float32(x))
 
 
 def _host_df(idx) -> np.ndarray:
@@ -57,6 +79,16 @@ class TfIdf:
         ratio = np.float32(idx.n_docs) / df                 # float32 quotient
         return _to_device(np.log(ratio.astype(np.float64)), idx)
 
+    def part(self, tf: torch.Tensor, doc_len: torch.Tensor | None = None,
+             avg_dl: torch.Tensor | None = None) -> torch.Tensor:
+        """The per-word factor that multiplies idf: tf itself."""
+        return tf.to(torch.float32)
+
+    def score(self, tf: torch.Tensor, idf_w: torch.Tensor,
+              doc_len: torch.Tensor | None = None,
+              avg_dl: torch.Tensor | None = None) -> torch.Tensor:
+        return dot_q(self.part(tf), idf_w)
+
 
 @dataclasses.dataclass(frozen=True)
 class BM25:
@@ -72,6 +104,23 @@ class BM25:
         half = np.float32(0.5)
         arg = np.float32(1.0) + (n - df + half) / (df + half)  # float32 steps
         return _to_device(np.log(arg.astype(np.float64)), idx)
+
+    def part(self, tf: torch.Tensor, doc_len: torch.Tensor,
+             avg_dl: torch.Tensor) -> torch.Tensor:
+        """The per-word factor that multiplies idf: ``tf (k1 + 1) / (tf +
+        k1 norm(d))``; ``tf`` (..., Q), ``doc_len`` (...), ``avg_dl`` a
+        float32 scalar."""
+        tf = tf.to(torch.float32)
+        ratio = doc_len.to(torch.float32) / avg_dl
+        norm = _f32(1.0 - self.b) + _f32(self.b) * ratio
+        return tf * _f32(self.k1 + 1.0) / (tf + _f32(self.k1)
+                                            * norm[..., None])
+
+    def score(self, tf: torch.Tensor, idf_w: torch.Tensor,
+              doc_len: torch.Tensor | None = None,
+              avg_dl: torch.Tensor | None = None) -> torch.Tensor:
+        """sum_q idf_q * part_q (:func:`dot_q`)."""
+        return dot_q(self.part(tf, doc_len, avg_dl), idf_w)
 
 
 def assert_dr_compatible(measure) -> None:

@@ -18,7 +18,8 @@ array (the paper's footnote-2 fast select), making document extents O(1).
 
 The build is the reference's numpy host build; the index is a frozen
 dataclass of tensors on one device plus host integers for scalars.
-``locate``, ``decode_at`` and ``extract`` arrive with the positional slice.
+``locate``, ``decode_at`` and ``extract`` are batched over many positions
+(one ``byte_rank`` launch per level of a decode on the card).
 """
 from __future__ import annotations
 
@@ -273,6 +274,122 @@ def count_doc(idx: WTBCIndex, w: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     """tf of word-rank w in document d."""
     lo, hi = segment_extent(idx, d, d + 1)
     return count_range(idx, w, lo, hi)
+
+
+# ---------------------------------------------------------------------------
+# locate / decode (paper §2.2)
+# ---------------------------------------------------------------------------
+
+def locate(idx: WTBCIndex, w: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
+    """Root position of the ``j[i]``-th (1-based) occurrence of word-rank
+    ``w[i]``; same-shape int32.
+
+    Walks leaf -> root with one select per level, every lane at every level
+    (a lane whose codeword does not reach a level keeps its position), so
+    the work never waits on the data.  Out-of-range ``j`` is not checked (as
+    in the reference): each level's select saturates to its stream length,
+    so callers that cannot guarantee ``1 <= j <= occ[w]`` validate ``j``
+    themselves."""
+    shape = w.shape
+    w = w.reshape(-1).long()
+    j = j.reshape(-1).to(torch.int32)
+    pos = torch.zeros_like(j)
+    wlen = idx.cw_len[w]
+    for L in range(MAX_LEVELS - 1, -1, -1):
+        base = idx.base_rank[w, L]
+        # occurrence index within this level's byte stream (1-based)
+        occ_idx = torch.where(wlen == L + 1, base + j, base + pos + 1)
+        p = bytemap.select(idx.levels[L], idx.cw[w, L], occ_idx) \
+            - idx.node_off[w, L]
+        pos = torch.where(wlen > L, p, pos)
+    return pos.reshape(shape)
+
+
+def decode_at(idx: WTBCIndex, pos: torch.Tensor, *,
+              kernel_backend: str = "auto") -> torch.Tensor:
+    """Word-rank at root position ``pos[i]``; same-shape int32.
+
+    Descends with one access and two ranks per level, reconstructing the
+    (s,c)-DC rank arithmetically from the byte path.  Per level the 2·M
+    ranks go down in one ``byte_rank`` launch on the card; lanes whose word
+    ended at an upper level ride along (their ranks are discarded), so the
+    batch shape never depends on the data."""
+    s, c = idx.s, idx.c
+    shape = pos.shape
+    p = pos.reshape(-1).to(torch.int32)
+    M = p.numel()
+    prefix = torch.zeros_like(p)     # node key at the current level
+    x = torch.zeros_like(p)          # accumulated continuer value
+    rank_val = torch.zeros_like(p)
+    done = torch.zeros(M, dtype=torch.bool, device=p.device)
+    base_k, width = 0, s             # first rank of the k-byte band
+    for L in range(MAX_LEVELS):
+        lv = idx.levels[L]
+        off = idx.offsets[L][prefix.long()]
+        b = bytemap.access(lv, off + p).to(torch.int32)
+        is_stop = b < s
+        val = x * s + b + base_k
+        rank_val = torch.where(is_stop & ~done, val, rank_val)
+        r = bytemap.rank(lv, torch.cat([b, b]), torch.cat([off + p, off]),
+                         kernel_backend=kernel_backend)
+        child_rel = r[:M] - r[M:]
+        p = torch.where(is_stop, p, child_rel)
+        prefix = torch.where(is_stop, prefix, prefix * c + (b - s))
+        x = torch.where(is_stop, x, x * c + (b - s))
+        done = done | is_stop
+        base_k += width
+        width *= c
+    return rank_val.reshape(shape)
+
+
+def extract(idx: WTBCIndex, lo: torch.Tensor, length: int, *,
+            kernel_backend: str = "auto") -> torch.Tensor:
+    """The ``length`` consecutive word-ranks starting at root position
+    ``lo`` (any shape; the result gains a trailing ``length`` axis) — one
+    batched ``decode_at``."""
+    lo = torch.as_tensor(lo, device=idx.device).to(torch.int32)
+    offs = torch.arange(length, dtype=torch.int32, device=idx.device)
+    return decode_at(idx, lo[..., None] + offs, kernel_backend=kernel_backend)
+
+
+def decode_all_np(idx: WTBCIndex, model: scdc.SCDCModel) -> np.ndarray:
+    """Reconstruct the full token stream (frequency ranks) on the host from
+    the level arrays by inverting the stable grouping — the sequential
+    decompression behind the paper's Table-1 'DT' measurement."""
+    s, c = idx.s, idx.c
+    root = idx.levels[0].data.cpu().numpy()[:idx.levels[0].length]
+    n = len(root)
+    x = np.zeros(n, dtype=np.int64)
+    lens = np.ones(n, dtype=np.int64)
+    bytes_L = root.astype(np.int64)
+    alive = np.arange(n)
+    prefix = np.zeros(n, dtype=np.int64)
+    for L in range(MAX_LEVELS):
+        if L > 0:
+            level = idx.levels[L].data.cpu().numpy()[:idx.levels[L].length]
+            # tokens alive at this level, grouped by node key in text order
+            order = np.argsort(prefix[alive], kind="stable")
+            bytes_for = np.empty(len(alive), dtype=np.int64)
+            bytes_for[order] = level[:len(alive)]
+            bytes_L = bytes_for
+            lens[alive] += 1
+        cont = bytes_L >= s
+        x[alive] = x[alive] * np.where(cont, c, s) + np.where(
+            cont, bytes_L - s, bytes_L)
+        prefix_new = prefix[alive] * c + (bytes_L - s)
+        keep = alive[cont]
+        prefix_next = np.zeros(n, dtype=np.int64)
+        prefix_next[keep] = prefix_new[cont]
+        prefix = prefix_next
+        alive = keep
+        if len(alive) == 0:
+            break
+    bases = np.zeros(MAX_LEVELS + 1, dtype=np.int64)
+    base, width = 0, s
+    for k in range(1, MAX_LEVELS + 1):
+        bases[k] = base
+        base, width = base + width, width * c
+    return bases[lens] + x
 
 
 def space_report(idx: WTBCIndex) -> dict[str, int]:

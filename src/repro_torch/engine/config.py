@@ -24,6 +24,12 @@ class EngineConfig:
     block:     rank-counter block size of every ByteMap level.  The CUDA
                kernels read tiles 16 bytes at a time, so on the card it must
                be a multiple of 16.
+    eps:       DRB stopword threshold — words with idf < eps get no tf bitmap
+               (paper: 1e-6 filters only near-universal words).
+    with_drb:  whether the DRB tf bitmaps may be built.  They are built
+               lazily, on the first DRB-routed query, so a DR-only
+               deployment pays no bitmap space; ``with_drb=False`` forbids
+               the build, and with it BM25 and ``strategy="drb"`` queries.
     default_k: results per query when ``search`` is called without ``k``.
     default_beam_width: frontier width P of the DR loop when ``search`` is
                called without ``beam_width``; P=1 is the classical one-pop
@@ -34,6 +40,8 @@ class EngineConfig:
                and without any anytime knob; one of ``SLA_CLASSES``.
     """
     block: int = bytemap.DEFAULT_BLOCK
+    eps: float = 1e-6
+    with_drb: bool = True
     default_k: int = 10
     default_beam_width: int = 1
     default_mega: bool = False

@@ -10,19 +10,20 @@ from __future__ import annotations
 
 from typing import Any, NamedTuple
 
-from repro_torch.core import mega, ranked
+from repro_torch.core import drb, mega, ranked
 
 
 class ExecutorKey(NamedTuple):
     """Hashable cache key."""
     backend: str          # "single"
-    strategy: str         # "dr" (post-"auto" resolution)
+    strategy: str         # "dr" | "drb" (post-"auto" resolution)
     mode: str             # "and" | "or"
     measure: Any          # frozen scoring dataclass
     k: int
     batch_shape: tuple[int, int]   # (B, Q)
-    budget: int | None    # DR max_pops
-    beam_width: int       # frontier width P of the heap core
+    budget: int | None    # DR max_pops / DRB-AND candidate budget
+    df_cap: int | None    # DRB/OR gather width (pow2-bucketed); else None
+    beam_width: int       # frontier width P of the heap core / DRB-AND walk
     mega: bool            # run the pool-frontier megabatch core
 
 
@@ -42,4 +43,23 @@ def make_single_dr(key: ExecutorKey, *, heap_cap: int, mega_cap: int, note):
                                         heap_cap=heap_cap,
                                         max_pops=key.budget,
                                         beam_width=key.beam_width)
+    return fn
+
+
+def make_single_drb(key: ExecutorKey, *, note):
+    """(idx, aux, words, wmask, idf, avg_dl) -> DRResult with (B, k)
+    leaves."""
+    note()
+    measure = key.measure
+    if key.mode == "and":
+        def fn(idx, aux, words, wmask, idf, avg_dl):
+            return drb.topk_drb_and(idx, aux, words, wmask, measure, k=key.k,
+                                    idf=idf, avg_dl=avg_dl,
+                                    beam_width=key.beam_width,
+                                    max_pops=key.budget)
+    else:
+        def fn(idx, aux, words, wmask, idf, avg_dl):
+            return drb.topk_drb_or(idx, aux, words, wmask, measure, k=key.k,
+                                   max_df_cap=key.df_cap, idf=idf,
+                                   avg_dl=avg_dl)
     return fn

@@ -1,18 +1,21 @@
-"""`SearchEngine` — the port's public query API (slice 1: WTBC-DR).
+"""`SearchEngine` — the port's public query API (WTBC-DR and WTBC-DRB).
 
     engine = SearchEngine.build(doc_tokens)                 # on the card
     engine = SearchEngine.build(doc_tokens, device="cpu")   # plain PyTorch
     res = engine.search([[w1, w2], [w3]], k=10, mode="and")
-    print(res.hits(0))
+    res = engine.search([[w1, w2]], k=10, mode="or", measure="bm25")
+    print(res.hits(0), engine.snippets(res, length=8))
 
 The facade owns word-id -> frequency-rank mapping, ragged-query padding and
-masking (Q padded to pow2 buckets), idf tables, frontier capacities, the DR /
-BM25 compatibility check, anytime budgets and SLA classes, and an executor
-cache keyed like the reference's.  Slice 1 answers DR tf-idf ``and``/``or``
-queries through the heap core (``beam_width``) or the mega core
-(``mega=True``); DRB and BM25 routing, positional modes, sharding, snippets
-and the observability registry raise ``NotImplementedError`` naming the
-ROADMAP slice that brings them.
+masking (Q padded to pow2 buckets), idf tables and the mean document length,
+frontier capacities, DR / DRB routing and the BM25 compatibility check, the
+lazily built DRB tf bitmaps and their gather width, anytime budgets and SLA
+classes, snippet decoding, and an executor cache keyed like the reference's.
+``and``/``or`` queries run on WTBC-DR (tf-idf: the heap core with
+``beam_width`` or the mega core with ``mega=True``) or on WTBC-DRB (tf-idf or
+BM25).  Positional modes, ``word_positions``, sharding and the observability
+registry raise ``NotImplementedError`` naming the ROADMAP slice that brings
+them.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch import convert
-from repro_torch.core import scoring, wtbc
+from repro_torch.core import drb, scoring, wtbc
 from repro_torch.engine import executors
 from repro_torch.engine.config import SLA_CLASSES, EngineConfig
 from repro_torch.engine.results import SearchResults
@@ -40,7 +43,7 @@ MEASURES = {"tfidf": scoring.TfIdf(), "bm25": scoring.BM25()}
 # the engine has observed real traffic (see SearchEngine.us_per_pop)
 DEFAULT_US_PER_POP = 50.0
 
-_SLICE2 = "ROADMAP Queue 1, slice 2 (the rest of the query surface)"
+_SLICE3 = "ROADMAP Queue 1, slice 3 (positional search)"
 
 
 def pow2_bucket(n: int) -> int:
@@ -83,14 +86,15 @@ def _normalize_docs(docs, vocab_size: int | None):
 
 
 class SearchEngine:
-    """Facade over the WTBC-DR search cores on one device.
+    """Facade over the WTBC-DR and WTBC-DRB search cores on one device.
 
     Construct with :meth:`build` (or :meth:`from_arrays` to carry an index
-    across); query with :meth:`search`.
+    across); query with :meth:`search`; recover text around the hits with
+    :meth:`snippets`.
     """
 
     def __init__(self, *, _token=None, config: EngineConfig, model,
-                 idx: wtbc.WTBCIndex):
+                 idx: wtbc.WTBCIndex, doc_tokens=None):
         if _token is not _CTOR_TOKEN:
             raise TypeError("use SearchEngine.build(...) or "
                             "SearchEngine.from_arrays(...)")
@@ -99,6 +103,11 @@ class SearchEngine:
         self.n_docs = idx.n_docs
         self.backend = "single"
         self._idx = idx
+        # kept only until the lazy DRB build has run — pinning the raw
+        # tokens for good would defeat the paper's "no space" premise
+        self._doc_tokens = doc_tokens if config.with_drb else None
+        self._aux: drb.DRBAux | None = None
+        self._avg_dl: torch.Tensor | None = None
         self._idf_tables: dict[str, torch.Tensor] = {}
         self._executors: dict[executors.ExecutorKey, Any] = {}
         self._trace_counts: dict[executors.ExecutorKey, int] = {}
@@ -110,6 +119,7 @@ class SearchEngine:
         # removes 1, adds <= 2, over < n_docs splits)
         self._mega_cap = idx.n_docs + 2
         self._df_np = idx.df.cpu().numpy()
+        self._max_df_cap = int(self._df_np.max()) + 2
         self._content_tag: int | None = None
 
     # -- construction -------------------------------------------------------
@@ -126,17 +136,22 @@ class SearchEngine:
         doc_tokens, vocab_size = _normalize_docs(docs, vocab_size)
         idx, model = wtbc.build_index(doc_tokens, vocab_size,
                                       block=config.block, device=dev)
-        return cls(_token=_CTOR_TOKEN, config=config, model=model, idx=idx)
+        return cls(_token=_CTOR_TOKEN, config=config, model=model, idx=idx,
+                   doc_tokens=doc_tokens)
 
     @classmethod
     def from_arrays(cls, index_arrays: dict, model_arrays: dict,
                     idf: dict | None = None,
                     config: EngineConfig | None = None, *,
+                    aux: dict | None = None, avg_dl: float | None = None,
                     device=None) -> "SearchEngine":
         """An engine over an index carried across as plain numpy arrays under
         the reference's field names (see :mod:`repro_torch.convert`).
-        ``idf`` maps measure names to idf tables to use instead of the
-        engine's own host-computed ones."""
+        ``idf`` maps measure names to idf tables, and ``avg_dl`` is the mean
+        document length, to use instead of the engine's own host-computed
+        ones.  ``aux`` carries the DRB tf bitmaps; without it, DRB (and
+        BM25) queries raise, since the raw tokens to build them from are
+        not carried."""
         dev = backend.resolve_device(device)
         idx, model = convert.from_reference(index_arrays, model_arrays,
                                             device=dev)
@@ -149,12 +164,16 @@ class SearchEngine:
             if name not in MEASURES:
                 raise ValueError(f"unknown measure {name!r} in idf tables")
             eng._idf_tables[name] = convert.idf_table(table, idx)
+        if aux is not None:
+            eng._aux = convert.aux_from_reference(aux, device=dev)
+        if avg_dl is not None:
+            eng._avg_dl = torch.tensor(np.float32(avg_dl), device=dev)
         return eng
 
     @classmethod
     def shard(cls, *args, **kwargs):
         raise NotImplementedError("document-sharded engines arrive with "
-                                  "ROADMAP Queue 1, slice 4 (scale-out)")
+                                  "ROADMAP Queue 1, slice 5 (scale-out)")
 
     # -- state ----------------------------------------------------------------
 
@@ -169,12 +188,38 @@ class SearchEngine:
     @property
     def obs_registry(self):
         raise NotImplementedError("the observability registry arrives with "
-                                  "ROADMAP Queue 1, slice 3 (serving)")
+                                  "ROADMAP Queue 1, slice 4 (serving)")
+
+    @property
+    def aux(self) -> drb.DRBAux:
+        """DRB tf bitmaps, built on the host on first use and placed on the
+        engine's device."""
+        if self._aux is None:
+            if not self.config.with_drb:
+                raise ValueError("this engine was built with with_drb=False; "
+                                 "DRB (and BM25) queries are unavailable")
+            if self._doc_tokens is None:
+                raise ValueError("DRB bitmaps unavailable: this engine was "
+                                 "carried across without them (pass aux= to "
+                                 "from_arrays)")
+            self._aux = drb.build_aux(self._idx, self.model, self._doc_tokens,
+                                      eps=self.config.eps)
+            self._doc_tokens = None     # raw tokens no longer needed
+        return self._aux
 
     def _idf_table(self, measure) -> torch.Tensor:
         if measure.name not in self._idf_tables:
             self._idf_tables[measure.name] = measure.idf(self._idx)
         return self._idf_tables[measure.name]
+
+    def _avg_doc_len(self) -> torch.Tensor:
+        """BM25's mean document length: an exact integer sum on the host,
+        then a float32 division (``scoring.avg_doc_len``)."""
+        if self._avg_dl is None:
+            self._avg_dl = torch.tensor(scoring.avg_doc_len(
+                self._idx.doc_len.cpu().numpy(), self.n_docs),
+                device=self.device)
+        return self._avg_dl
 
     @property
     def content_tag(self) -> int:
@@ -237,7 +282,7 @@ class SearchEngine:
             except KeyError:
                 raise ValueError(f"unknown measure {measure!r}; expected one "
                                  f"of {sorted(MEASURES)} or a scoring object")
-        for attr in ("name", "dr_compatible", "idf"):
+        for attr in ("name", "dr_compatible", "idf", "part", "score"):
             if not hasattr(measure, attr):
                 raise ValueError(f"measure object lacks .{attr}")
         return measure
@@ -250,9 +295,24 @@ class SearchEngine:
             strategy = "dr" if measure.dr_compatible else "drb"
         if strategy == "dr":
             scoring.assert_dr_compatible(measure)   # BM25 + "dr" -> ValueError
-            return strategy
-        raise NotImplementedError(f"WTBC-DRB (and the BM25 routing through "
-                                  f"it) arrives with {_SLICE2}")
+        elif not self.config.with_drb:
+            raise ValueError("this engine was built with with_drb=False; "
+                             "only strategy='dr' is available")
+        return strategy
+
+    def _df_cap(self, ranks: np.ndarray, mask: np.ndarray) -> int:
+        """DRB/OR gather width: the largest df among the query words (+2
+        slack), rounded up to a power of two so nearby workloads share one
+        executor, capped at the engine's largest df + 2."""
+        m = int(self._df_np[ranks[mask]].max()) if mask.any() else 1
+        return min(pow2_bucket(m + 2), self._max_df_cap)
+
+    def suggested_df_cap(self, queries) -> int:
+        """The DRB/OR gather width ``search`` would derive for ``queries`` —
+        pass it back as ``search(..., df_cap=...)`` to pin every batch drawn
+        from the same word population onto one executor."""
+        ranks, mask = self._encode_queries(queries)
+        return self._df_cap(ranks, mask)
 
     # -- anytime cost model ---------------------------------------------------
 
@@ -293,8 +353,12 @@ class SearchEngine:
             def note():
                 with self._stats_lock:
                     self._trace_counts[key] = self._trace_counts.get(key, 0) + 1
-            ex = executors.make_single_dr(key, heap_cap=self._heap_cap,
-                                          mega_cap=self._mega_cap, note=note)
+            if key.strategy == "dr":
+                ex = executors.make_single_dr(key, heap_cap=self._heap_cap,
+                                              mega_cap=self._mega_cap,
+                                              note=note)
+            else:
+                ex = executors.make_single_drb(key, note=note)
             with self._stats_lock:
                 ex = self._executors.setdefault(key, ex)
         return ex
@@ -302,12 +366,14 @@ class SearchEngine:
     def warmup(self, queries, *, max_batch: int = 1, k: int | None = None,
                mode: str = "and", strategy: str = "auto", measure="tfidf",
                budget: int | None = None, sla: str | None = None,
-               beam_width: int | None = None,
+               beam_width: int | None = None, df_cap: int | None = None,
                mega: bool | None = None) -> int:
         """Construct every executor the traffic profile can hit: one per
         (batch bucket <= pow2(max_batch), Q bucket present in ``queries``),
         each by one real search.  Returns the number of new executors; after
-        it, traffic of this profile adds none (``stats['traces']``)."""
+        it, traffic of this profile adds none (``stats['traces']``).  For
+        DRB ``or`` traffic pass a ``df_cap`` (e.g. :meth:`suggested_df_cap`
+        over the word population), else each batch derives its own."""
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         if hasattr(queries, "ndim") or (
@@ -321,7 +387,8 @@ class SearchEngine:
             reps.setdefault(pow2_bucket(max(1, len(r))), r)
         before = sum(self._trace_counts.values())
         kw = dict(k=k, mode=mode, strategy=strategy, measure=measure,
-                  budget=budget, sla=sla, beam_width=beam_width, mega=mega)
+                  budget=budget, sla=sla, beam_width=beam_width,
+                  df_cap=df_cap, mega=mega)
         n_b = pow2_bucket(max_batch).bit_length()     # 1, 2, 4, ..., bucket
         for r in reps.values():
             row = [int(w) for w in r]
@@ -338,26 +405,33 @@ class SearchEngine:
                beam_width: int | None = None,
                df_cap: int | None = None,
                mega: bool | None = None) -> SearchResults:
-        """Ranked top-k retrieval (the reference's contract, DR and/or).
+        """Ranked top-k retrieval (the reference's contract, and/or).
 
         queries:  (B, Q) / (Q,) array of word ids, or ragged lists of ids.
         k:        results per query (default ``config.default_k``).
         mode:     "and" (conjunctive) or "or" (bag-of-words).
-        strategy: "dr" or "auto" (DR for tf-idf).
-        measure:  "tfidf" (DR); "bm25" is rejected by DR as in the reference.
-        budget:   anytime pop budget per row; results carry ``certified`` bits
-                  and a ``score_bound``.  A budget that cannot bind runs the
-                  exact search.
+        strategy: "dr" (no extra space), "drb" (tf bitmaps) or "auto" (DR
+                  for tf-idf, DRB for measures DR cannot rank, i.e. BM25).
+        measure:  "tfidf" or "bm25" (DRB only; DR rejects it as in the
+                  reference).
+        budget:   anytime budget per row — pops on DR, candidate documents
+                  on DRB ``and``; results carry ``certified`` bits and a
+                  ``score_bound``.  A budget that cannot bind runs the exact
+                  search; DRB ``or`` is loop-free and ignores it.
         deadline_ms: converted to a budget through the live us/pop estimate
                   (pow-4 buckets); combines with ``budget`` by min.
         sla:      "exact" (rejects budgets/deadlines), "bounded" or
                   "best_effort".
-        beam_width: frontier width P of the heap core (default
-                  ``config.default_beam_width``); results are identical at
-                  every width.
-        mega:     run the pool-frontier megabatch core (forces P=1).
-        window, df_cap: belong to the positional / DRB-OR paths of slice 2;
-                  rejected here as the reference rejects them on DR.
+        beam_width: frontier width P of the heap core or of the DRB ``and``
+                  walk (default ``config.default_beam_width``); results are
+                  identical at every width.
+        df_cap:   DRB ``or`` gather width (pow2-bucketed, capped at the
+                  engine's largest df + 2); by default derived from the
+                  batch's heaviest word.  A cap below what the batch needs
+                  raises instead of silently truncating.  DRB ``or`` only.
+        mega:     run DR on the pool-frontier megabatch core (forces P=1);
+                  normalized off on DRB.
+        window:   belongs to the positional modes (slice 3); rejected here.
         """
         k = self.config.default_k if k is None else int(k)
         if k <= 0:
@@ -366,7 +440,7 @@ class SearchEngine:
             raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
         if mode in POSITIONAL_MODES:
             raise NotImplementedError(f"mode={mode!r} (positional search) "
-                                      f"arrives with {_SLICE2}")
+                                      f"arrives with {_SLICE3}")
         if sla is not None and sla not in SLA_CLASSES:
             raise ValueError(f"unknown sla {sla!r}; expected one of "
                              f"{SLA_CLASSES}")
@@ -391,28 +465,51 @@ class SearchEngine:
             budget = int(budget)
             if budget < 1:
                 raise ValueError(f"budget must be >= 1, got {budget}")
-            if budget >= 2 * self.n_docs + 2:
+            if strat == "drb" and mode == "or":
+                budget = None   # loop-free gather: always complete/certified
+            elif budget >= 2 * self.n_docs + 2:
                 budget = None   # can never bind: run the plain exact search
         if beam_width is None:
             beam_width = self.config.default_beam_width
         elif int(beam_width) < 1:
             raise ValueError(f"beam_width must be >= 1, got {beam_width}")
         beam_width = int(beam_width)
+        if strat == "drb" and mode == "or":
+            beam_width = 1      # no search loop: don't split the executor
         mega = self.config.default_mega if mega is None else bool(mega)
+        # the mega core covers DR only; elsewhere normalize it off (a
+        # serving profile may carry one flag across strategy routing)
+        mega = mega and strat == "dr"
         if mega:
             beam_width = 1      # one pop per row: the batch dim IS the beam
-        if df_cap is not None:
+        ranks, mask = self._encode_queries(queries)
+        if strat == "drb" and mode == "or":
+            auto_cap = self._df_cap(ranks, mask)
+            if df_cap is None:
+                df_cap = auto_cap
+            else:
+                df_cap = min(pow2_bucket(int(df_cap)), self._max_df_cap)
+                if df_cap < auto_cap:
+                    raise ValueError(
+                        f"df_cap={df_cap} is smaller than the {auto_cap} this "
+                        "batch's heaviest word needs — the gather would "
+                        "silently truncate; pass a cap derived from "
+                        "suggested_df_cap over the full word population")
+        elif df_cap is not None:
             raise ValueError("df_cap applies to the DRB/OR gather path only "
                              f"(got strategy={strat!r}, mode={mode!r})")
-        ranks, mask = self._encode_queries(queries)
         key = executors.ExecutorKey(self.backend, strat, mode, m, k,
-                                    tuple(ranks.shape), budget, beam_width,
-                                    mega)
+                                    tuple(ranks.shape), budget, df_cap,
+                                    beam_width, mega)
         ex = self._executor(key)
         dev = self.device
         words = torch.from_numpy(ranks).to(dev)
         wmask = torch.from_numpy(mask).to(dev)
-        res = ex(self._idx, words, wmask, self._idf_table(m))
+        if strat == "dr":
+            res = ex(self._idx, words, wmask, self._idf_table(m))
+        else:
+            res = ex(self._idx, self.aux, words, wmask, self._idf_table(m),
+                     self._avg_doc_len())
         return SearchResults(docs=res.docs, scores=res.scores,
                              n_found=res.n_found, work=res.iters, k=k,
                              mode=mode, strategy=strat, measure=m.name,
@@ -421,15 +518,41 @@ class SearchEngine:
                              certified=res.certified,
                              score_bound=res.bound, sla=sla)
 
-    # -- slice 2 surfaces ------------------------------------------------------
+    # -- post-processing -----------------------------------------------------
 
-    def snippets(self, results: SearchResults, length: int = 8):
-        raise NotImplementedError(f"snippets (wtbc.extract) arrive with "
-                                  f"{_SLICE2}")
+    def snippets(self, results: SearchResults,
+                 length: int = 8) -> list[list[np.ndarray]]:
+        """Decode the first ``length`` word ids of every hit document
+        straight from the compressed index (no stored text).  Returns one
+        list per query, one id array per hit (shorter documents come back
+        whole).  Every hit of the result is decoded in one batched
+        ``wtbc.decode_at`` — on the card, one ``byte_rank`` launch per
+        level."""
+        length = int(length)
+        if length < 1:
+            raise ValueError(f"length must be >= 1, got {length}")
+        idx = self._idx
+        hits = [[d for d, _ in results.hits(b)] for b in range(len(results))]
+        flat = [d for row in hits for d in row]
+        if not flat:
+            return [[] for _ in hits]
+        d = torch.tensor(flat, dtype=torch.int32, device=self.device)
+        pos = wtbc.doc_start(idx, d)[:, None] + torch.arange(
+            length, dtype=torch.int32, device=self.device)
+        # a fixed decode width; positions clamped in bounds, trimmed on host
+        ranks = wtbc.decode_at(idx, pos.clamp(max=idx.n - 1)).cpu().numpy()
+        n_take = np.minimum(length, idx.doc_len[d.long()].cpu().numpy())
+        words = self.model.word_of_rank[ranks]
+        out, at = [], 0
+        for row in hits:
+            out.append([words[at + i, :n_take[at + i]]
+                        for i in range(len(row))])
+            at += len(row)
+        return out
 
     def word_positions(self, doc: int, word_ids, cap: int = 32):
-        raise NotImplementedError(f"word_positions (wtbc.locate) arrive with "
-                                  f"{_SLICE2}")
+        raise NotImplementedError(f"word_positions (core/positional.py) "
+                                  f"arrives with {_SLICE3}")
 
     # -- introspection -------------------------------------------------------
 
@@ -441,8 +564,14 @@ class SearchEngine:
                     "traces": dict(self._trace_counts)}
 
     def space_report(self) -> dict[str, int]:
-        """Index space on its device, bytes per component."""
-        return wtbc.space_report(self._idx)
+        """Index (and, once built, DRB bitmap) space on its device, bytes
+        per component."""
+        report = wtbc.space_report(self._idx)
+        if self._aux is not None:
+            aux_rep = drb.space_report(self._aux)
+            report.update({f"drb_{k}": v for k, v in aux_rep.items()})
+            report["total"] += sum(aux_rep.values())
+        return report
 
 
 _CTOR_TOKEN = object()

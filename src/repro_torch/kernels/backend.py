@@ -138,7 +138,25 @@ BEAM_LOOP = CudaKernel(
     + (_P, _P, _I)                    # out_docs, out_scores, k
     + (_P, _P, _P, _P, _P)            # n_out, iters, pops, overflowed, status
     + (_I, _I, _I, _I, _P))           # conjunctive, max_pops, max_trips, B
-KERNELS = (WAVELET_COUNT, BEAM_LOOP)
+# one bytemap level: (data, counts, n_blocks, length, block)
+_BYTEMAP_ARGS = (_P, _P, _I, _I, _I)
+BYTE_RANK = CudaKernel(
+    "byte_rank", "byte_rank.cu",
+    _BYTEMAP_ARGS + (_P, _P, _P, _I, _P))   # bytes, pos, out, M, stream
+SEGMENT_TF = CudaKernel(
+    "segment_tf", "segment_tf.cu",
+    _BYTEMAP_ARGS + (_I, _P, _P, _I, _P))   # byte, bounds, out, D, stream
+BITMAP_RANK1 = CudaKernel(
+    "bitmap_rank1", "bitmap_rank.cu",
+    # words, counts, n_blocks, n_bits, pos, out, M, stream
+    (_P, _P, _I, _I, _P, _P, _I, _P))
+SCORED_TOPK = CudaKernel(
+    "scored_topk", "topk_score.cu",
+    # cands, query, row_ok, B, C, d, dtype, k, tile, vec, part_s, part_i,
+    # stream
+    (_P, _P, _P) + (_I,) * 7 + (_P, _P, _P))
+KERNELS = (WAVELET_COUNT, BEAM_LOOP, BITMAP_RANK1, BYTE_RANK, SEGMENT_TF,
+           SCORED_TOPK)
 
 
 def launch_counts() -> dict[str, int]:

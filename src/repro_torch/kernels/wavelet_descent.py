@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import backend, ref
+from repro_torch.kernels.byte_rank import bytemap_args
 
 
 def _require(cond: bool, what: str) -> None:
@@ -22,25 +23,14 @@ def _require(cond: bool, what: str) -> None:
 
 def level_args(levels) -> tuple:
     """The kernels' level arguments: (data, counts, n_blocks, length) per
-    level, then the shared block size — checked for what the device code
-    assumes (contiguous uint8 tiles on 16-byte boundaries, int32 counters,
-    int32-addressable positions)."""
+    level, then the shared block size — each level checked for what the
+    device code assumes (``byte_rank.bytemap_args``)."""
     block = levels[0].block
     _require(len(levels) == 3, "expects 3 levels")
-    _require(block % 16 == 0, f"block {block} is not a multiple of 16")
     args = []
     for lv in levels:
         _require(lv.block == block, "levels differ in block size")
-        _require(lv.data.dtype == torch.uint8 and lv.data.is_contiguous()
-                 and lv.data.data_ptr() % 16 == 0,
-                 "level data must be contiguous 16-byte-aligned uint8")
-        _require(lv.counts.dtype == torch.int32 and lv.counts.is_contiguous()
-                 and tuple(lv.counts.shape) == (lv.n_blocks + 1, 256),
-                 "level counts must be contiguous (n_blocks+1, 256) int32")
-        _require(lv.data.numel() == lv.n_blocks * block < 2**31,
-                 "level data must hold n_blocks*block < 2**31 bytes")
-        args += [lv.data.data_ptr(), lv.counts.data_ptr(), lv.n_blocks,
-                 lv.length]
+        args += bytemap_args(lv.data, lv.counts, lv.length, block)[:4]
     return (*args, block)
 
 

@@ -9,7 +9,11 @@
   scalar ``wtbc.count_range`` walk, at random triples and at lo = hi,
   hi = n and block edges;
 * document geometry and ``bytemap.rank`` edges;
-* ``convert.from_reference`` carries the reference's arrays across intact.
+* ``convert.from_reference`` carries the reference's arrays across intact;
+* ``bitvec.rank1`` / ``select1``, ``bytemap.select`` / ``access`` and
+  ``wtbc.locate`` / ``decode_at`` / ``extract`` / ``decode_all_np`` equal the
+  reference's functions bitwise (the positional and snippet primitives), and
+  ``convert.aux_from_reference`` carries the DRB bitmaps across intact.
 """
 import dataclasses
 
@@ -19,12 +23,16 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import bitvec as r_bitvec
+from repro.core import bytemap as r_bytemap
+from repro.core import drb as r_drb
 from repro.core import scdc as r_scdc
 from repro.core import wtbc as r_wtbc
 from repro.kernels import ref as r_ref
 from repro.kernels import wavelet_descent as r_wd
 from repro.text import corpus as r_corpus
 from repro_torch import convert
+from repro_torch.core import bitvec as p_bitvec
 from repro_torch.core import bytemap as p_bytemap
 from repro_torch.core import scdc as p_scdc
 from repro_torch.core import wtbc as p_wtbc
@@ -246,3 +254,95 @@ def test_from_reference_round_trips():
                                       getattr(rmodel, f.name))
     with pytest.raises(ValueError, match="idf table"):
         convert.idf_table(np.zeros(3), idx)
+
+
+# ---------------------------------------------------------------------------
+# select / access / locate / decode (slice 2)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n_bits,dens", [(1, 1.0), (1000, 0.3), (5000, 0.01),
+                                         (40000, 0.9), (3000, 0.0)])
+def test_bitvec_rank1_select1_match_reference(n_bits, dens):
+    rng = np.random.default_rng(n_bits)
+    sb = np.flatnonzero(rng.random(n_bits) < dens)
+    rbv, pbv = r_bitvec.build(sb, n_bits), p_bitvec.build(sb, n_bits)
+    assert pbv.n_bits == int(rbv.n_bits)
+    pos = np.concatenate([rng.integers(-2, n_bits + 3, 200),
+                          [0, n_bits, 1023, 1024, 1025, 2048]]).astype(np.int32)
+    np.testing.assert_array_equal(
+        p_bitvec.rank1(pbv, torch.from_numpy(pos)).numpy(),
+        np.asarray(jax.vmap(lambda x: r_bitvec.rank1(rbv, x))(pos)))
+    j = np.concatenate([rng.integers(-1, len(sb) + 3, 200),
+                        [0, 1, len(sb), len(sb) + 1]]).astype(np.int32)
+    got = p_bitvec.select1(pbv, torch.from_numpy(j)).numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(jax.vmap(lambda x: r_bitvec.select1(rbv, x))(j)))
+    np.testing.assert_array_equal(
+        got, [r_bitvec.select1_np(sb, int(x), n_bits) for x in j])
+
+
+@pytest.mark.parametrize("n,block", [(0, 512), (700, 512), (5000, 1024),
+                                     (12000, 4096), (3000, 200)])
+def test_bytemap_select_access_match_reference(n, block):
+    rng = np.random.default_rng(n + block)
+    data = rng.integers(0, 6, n).astype(np.uint8)
+    rbm, pbm = r_bytemap.build(data, block=block), p_bytemap.build(data, block)
+    b = rng.integers(0, 7, 300).astype(np.int32)
+    j = np.concatenate([rng.integers(-1, n // 5 + 3, 294),
+                        [0, 1, n // 6, n // 6 + 1, 10**6, -5]]).astype(np.int32)
+    got = p_bytemap.select(pbm, torch.from_numpy(b), torch.from_numpy(j)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jax.vmap(
+        lambda x, y: r_bytemap.select(rbm, x, y))(b, j)))
+    np.testing.assert_array_equal(
+        got, [r_bytemap.select_np(data, int(x), int(y)) for x, y in zip(b, j)])
+    pos = rng.integers(-3, n + 4, 100).astype(np.int32)
+    np.testing.assert_array_equal(
+        p_bytemap.access(pbm, torch.from_numpy(pos)).numpy(),
+        np.asarray(r_bytemap.access(rbm, jnp.asarray(pos))))
+
+
+@pytest.mark.parametrize("block", [512, 4096])
+@pytest.mark.parametrize("name", sorted(CORPORA))
+def test_locate_decode_extract_match_reference(name, block):
+    cp, (ridx, rmodel), (pidx, _) = builds(name, block)
+    rng = np.random.default_rng(block + 1)
+    occ = pidx.occ.numpy()
+    w = rng.integers(0, pidx.vocab_size, 400)
+    w = w[occ[w] > 0].astype(np.int32)
+    j = (1 + rng.integers(0, 10**6, len(w)) % occ[w]).astype(np.int32)
+    j[:3] = occ[w[:3]]                                    # last occurrences
+    got = p_wtbc.locate(pidx, torch.from_numpy(w), torch.from_numpy(j))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jax.vmap(
+        lambda a, b: r_wtbc.locate(ridx, a, b))(w, j)))
+    # the located position holds the word
+    np.testing.assert_array_equal(p_wtbc.decode_at(pidx, got).numpy(), w)
+    pos = np.concatenate([rng.integers(0, pidx.n, 300),
+                          [0, pidx.n - 1]]).astype(np.int32)
+    np.testing.assert_array_equal(
+        p_wtbc.decode_at(pidx, torch.from_numpy(pos)).numpy(),
+        np.asarray(jax.vmap(lambda a: r_wtbc.decode_at(ridx, a))(pos)))
+    for lo in (0, 37, pidx.n - 8):
+        np.testing.assert_array_equal(
+            p_wtbc.extract(pidx, torch.tensor(lo), 8).numpy(),
+            np.asarray(r_wtbc.extract(ridx, jnp.int32(lo), 8)))
+    flat = np.concatenate([np.append(d, 0) for d in cp.doc_tokens])
+    whole = p_wtbc.decode_all_np(pidx, rmodel)
+    np.testing.assert_array_equal(whole, r_wtbc.decode_all_np(ridx, rmodel))
+    np.testing.assert_array_equal(whole, rmodel.rank_of_word[flat])
+
+
+def test_aux_from_reference_round_trips():
+    cp, (ridx, rmodel), (pidx, _) = builds("engine", 512)
+    raux = r_drb.build_aux(ridx, rmodel, cp.doc_tokens)
+    aux = convert.aux_from_reference(
+        {"words": np.asarray(raux.bv.words), "counts": np.asarray(raux.bv.counts),
+         "n_bits": int(raux.bv.n_bits), "bit_off": np.asarray(raux.bit_off),
+         "has_bm": np.asarray(raux.has_bm), "eps": raux.eps}, device="cpu")
+    np.testing.assert_array_equal(aux.bv.words.numpy().view(np.uint32),
+                                  np.asarray(raux.bv.words))
+    np.testing.assert_array_equal(aux.bv.counts.numpy(),
+                                  np.asarray(raux.bv.counts))
+    assert aux.bv.n_bits == int(raux.bv.n_bits) and aux.eps == raux.eps
+    np.testing.assert_array_equal(aux.bit_off.numpy(), np.asarray(raux.bit_off))
+    assert aux.has_bm.dtype == torch.bool
+    np.testing.assert_array_equal(aux.has_bm.numpy(), np.asarray(raux.has_bm))
