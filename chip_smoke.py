@@ -16,8 +16,9 @@ nothing falls back to the CPU):
    tokens, drawn from a seed in one vectorized draw; index built on the
    host at block 4096 and moved to the card.
 3. K1     — ``wavelet_count`` against its plain version on the card: 4,096
-   random triples (with lo = hi and hi = n) plus every triple of real
-   ranked and mega trips; bitwise.
+   random triples (with lo = hi and hi = n), triples whose endpoints land
+   on tile edges of levels 0 and 1 (where the nearer-end rank switches
+   sides), plus every triple of real ranked and mega trips; bitwise.
 4. K2     — ``beam_loop`` (the mega core's whole loop) against its plain
    loop on the card: four batches of B = 8 (and/or x df bands ii/iii,
    Q = 3 words, k = 10) plus a budgeted batch; every leaf bitwise.
@@ -28,8 +29,9 @@ nothing falls back to the CPU):
    both kernels were launched.
 6. timings — CUDA-event times per launch of each kernel and of its plain
    version at the main path's shapes, the least time the card could take
-   for the same work (bytes at 3.35 TB/s, byte compares at 1,979 TOPS),
-   and ms per batch per core.
+   for the same work (bytes at 3.35 TB/s, byte compares at 1,979 TOPS; a
+   rank needs the nearer end of its tile, ``near_bytes``), and ms per
+   batch per core.
 7. DRB aux — the tf bitmaps of WTBC-DRB built on the host for the same
    corpus; build time and bytes beside the index's bytes.
 8. K3 ``bitmap_rank1``, K5 ``byte_rank``, K4 ``segment_tf`` and K6
@@ -194,14 +196,42 @@ class OpsRecorder:
 
 
 
+def near_bytes(bm, byte, pos) -> tuple[int, int]:
+    """(bytes, byte compares) that byte ranks of ``byte`` at ``pos`` in one
+    level need when each counts the nearer end of its tile: a cut past half
+    the tile's logical bytes (valid = min(block, length - blk*block)) counts
+    the suffix [cut, valid) against the next counter row, any other cut the
+    prefix [0, cut) against its own.  Bytes: per block the union of the
+    prefixes and suffixes read (capped at valid) and each distinct counter
+    cell, each read once; compares: every byte each rank counts."""
+    import torch
+    pos = pos.to(torch.int64).reshape(-1).clamp(0, bm.length)
+    byte = torch.as_tensor(byte, device=pos.device).to(torch.int64)
+    byte = byte.reshape(-1).expand_as(pos)
+    nb = bm.n_blocks
+    blk = torch.clamp(pos // bm.block, max=nb - 1)
+    cut = pos - blk * bm.block
+    starts = torch.arange(nb, device=pos.device, dtype=torch.int64) * bm.block
+    valid_b = (bm.length - starts).clamp(max=bm.block)
+    valid = valid_b[blk]
+    back = cut > valid // 2
+    front = torch.zeros(nb, dtype=torch.long, device=pos.device)
+    front.scatter_reduce_(0, blk[~back], cut[~back], "amax")
+    back_lo = valid_b.clone()
+    back_lo.scatter_reduce_(0, blk[back], cut[back], "amin")
+    tiles = torch.minimum(valid_b, front + valid_b - back_lo)
+    cells = torch.unique((blk + back.long()) * 256 + byte)
+    compares = torch.where(back, valid - cut, cut)
+    return int(tiles.sum()) + 4 * int(cells.numel()), int(compares.sum())
+
+
 def descent_bytes(idx, words, los, his, *, distinct_nonempty=False
                   ) -> tuple[int, int]:
     """(bytes, byte compares) the count descent of these triples needs: per
-    level it visits, the distinct tile prefixes [0, p - blk*block) and
-    counter cells its endpoints touch, each read once, plus each triple's
-    inputs, word tables and output.  Compares: every prefix byte counted.
-    ``distinct_nonempty`` keeps one copy of each triple with lo < hi (the
-    descents a search loop really needs: a plain trip also descends for
+    level it visits, what its endpoints' ranks need from the nearer end of
+    their tiles (``near_bytes``), plus each triple's inputs, word tables and
+    output.  ``distinct_nonempty`` keeps one copy of each triple with lo < hi
+    (the descents a search loop really needs: a plain trip also descends for
     stopped rows and singleton pops, whose triples repeat or are empty)."""
     import torch
     from repro_torch.core import bytemap
@@ -222,34 +252,56 @@ def descent_bytes(idx, words, los, his, *, distinct_nonempty=False
         off = idx.node_off[words, L]
         base = idx.base_rank[words, L]
         pos = torch.cat([off + a, off + b]).clamp(0, lv.length)
-        blk = torch.clamp(pos // lv.block, max=lv.n_blocks - 1).long()
-        cut = (pos - blk.to(torch.int32) * lv.block).long()
         if bool(need.any()):
-            widest = torch.zeros(lv.n_blocks, dtype=torch.long, device=pos.device)
-            widest.scatter_reduce_(0, blk[need], cut[need], "amax")
-            cells = torch.unique(blk[need] * 256 + torch.cat([byte, byte])[need])
-            nbytes += int(widest.sum()) + 4 * int(cells.numel())
-            compares += int(cut[need].sum())
+            nb, ops = near_bytes(lv, torch.cat([byte, byte])[need], pos[need])
+            nbytes += nb
+            compares += ops
         r = bytemap.rank(lv, torch.cat([byte, byte]), pos,
                          kernel_backend="ref")
         a, b = r[:M] - base, r[M:] - base
     return nbytes, compares
 
 
-def prefix_bytes(bm, byte, pos) -> tuple[int, int]:
-    """(bytes, byte compares) that byte ranks of ``byte`` at ``pos`` in one
-    level need: per block the widest tile prefix [0, p - blk*block) and each
-    distinct counter cell, each read once; compares: every prefix byte of
-    every rank."""
+def block_edge_triples(idx, rng, n_words: int = 12, per_word: int = 512):
+    """(words, los, his) on the card whose endpoints land on tile edges,
+    where the nearer-end rank switches sides: root positions at block edges
+    and one either side (with 0 and n), and, for words of two or more
+    levels, root positions chosen by select so that the level-1 position is
+    a block edge or one either side of it (up to ``per_word`` of each)."""
     import torch
-    pos = pos.to(torch.int64).reshape(-1).clamp(0, bm.length)
-    byte = torch.as_tensor(byte, device=pos.device).to(torch.int64)
-    blk = torch.clamp(pos // bm.block, max=bm.n_blocks - 1)
-    cut = pos - blk * bm.block
-    widest = torch.zeros(bm.n_blocks, dtype=torch.long, device=pos.device)
-    widest.scatter_reduce_(0, blk, cut, "amax")
-    cells = torch.unique(blk * 256 + byte.reshape(-1).expand_as(blk))
-    return int(widest.sum()) + 4 * int(cells.numel()), int(cut.sum())
+    from repro_torch.core import bytemap
+    dev = idx.device
+    n, block = idx.n, idx.levels[0].block
+    edges = np.arange(0, n + 1, block)
+    pos0 = np.unique(np.clip(np.concatenate([edges - 1, edges, edges + 1,
+                                             [0, n]]), 0, n))
+    cw_len = idx.cw_len.cpu().numpy()
+    words = np.concatenate([
+        rng.choice(np.flatnonzero(cw_len == L), min(n_words // 3, int(
+            np.count_nonzero(cw_len == L))), replace=False) for L in (1, 2, 3)])
+    lv0, lv1 = idx.levels[0], idx.levels[1]
+    e1 = np.arange(0, lv1.length + 1, lv1.block)
+    out = []
+    for w in words:
+        a = rng.choice(pos0, per_word)
+        b = rng.choice(pos0, per_word)
+        out.append((np.full(per_word, w), np.minimum(a, b), np.maximum(a, b)))
+        if cw_len[w] < 2:
+            continue
+        off1 = int(idx.node_off[w, 1])
+        byte0, base0 = int(idx.cw[w, 0]), int(idx.base_rank[w, 0])
+        occ = int(lv0.counts[-1, byte0]) - base0
+        t = np.concatenate([e1 - 1, e1, e1 + 1]) - off1
+        t = t[(t >= 1) & (t <= occ)]
+        if len(t) == 0:
+            continue
+        t = rng.choice(t, min(per_word, len(t)), replace=False)
+        j = torch.from_numpy((t + base0).astype(np.int32)).to(dev)
+        x = bytemap.select(lv0, torch.full_like(j, byte0), j).cpu().numpy() + 1
+        out.append((np.full(len(x), w), np.zeros(len(x), np.int64), x))
+        out.append((np.full(len(x), w), x - 1, np.full(len(x), n)))
+    return tuple(torch.from_numpy(np.concatenate([o[i] for o in out]).astype(
+        np.int32)).to(dev) for i in range(3))
 
 
 def bm25_bruteforce(tokens, ends, n_docs: int, words, *, mode: str, k: int,
@@ -408,7 +460,8 @@ def main(argv=None) -> int:
     with OpsRecorder() as rec1:
         mega.topk_dr_mega(idx, words_t, wmask_t, idf, k=K, conjunctive=False,
                           cap=idx.n_docs + 2, max_pops=8, kernel_backend="ref")
-    k1_sets = [("random", (w, lo, hi))] + \
+    k1_sets = [("random", (w, lo, hi)),
+               ("block-edge", block_edge_triples(idx, rng))] + \
         [("ranked P=16 trip", c) for c in rec16.calls[:9]] + \
         [("mega trip", c) for c in rec1.calls[:9]]
 
@@ -869,13 +922,13 @@ def drb_phases(engine, cp, batches, kind) -> tuple[list[dict], int]:
         kms, _ = profile_device(lambda: k5(case, "auto"), 100,
                                 "byte_rank_kernel")
         pms = time_cuda(lambda: k5(case, "ref"), reps=20, warm=3)
-        nb, ops = prefix_bytes(case[0], case[1], case[2])
+        nb, ops = near_bytes(case[0], case[1], case[2])
         bms, by = bound_ms(nb + 12 * case[2].numel(), ops)
         rows.append(("byte_rank", name, kms, call_ms, pms, bms, by))
     call_ms = time_cuda(lambda: k4("auto"), reps=50, warm=5)
     kms, _ = profile_device(lambda: k4("auto"), 20, "segment_tf_kernel")
     pms = time_cuda(lambda: k4("ref"), reps=5, warm=1)
-    nb, ops = prefix_bytes(root, byte4, bounds)
+    nb, ops = near_bytes(root, byte4, bounds)
     bms, by = bound_ms(nb + 8 * bounds.numel(), ops)
     rows.append(("segment_tf", f"D={bounds.numel() - 1} (every document)",
                  kms, call_ms, pms, bms, by))

@@ -18,7 +18,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import backend, ops, ref
 from repro_torch.kernels.bitmap_rank import WORDS_PER_BLOCK
 
 
@@ -29,9 +29,11 @@ class BitVec(NamedTuple):
 
 
 def build(set_bits: np.ndarray, n_bits: int,
-          device: torch.device | str = "cpu") -> BitVec:
+          device: torch.device | str | None = None) -> BitVec:
     """Host-side construction from the sorted positions of the set bits
-    (the reference's words and counters), placed on ``device``."""
+    (the reference's words and counters), placed on ``device``: the card by
+    default (raising when none is present), "cpu" for the plain path."""
+    device = backend.resolve_device(device)
     n_words = max(1, -(-n_bits // 32))
     n_blocks = -(-n_words // WORDS_PER_BLOCK)
     n_words = n_blocks * WORDS_PER_BLOCK

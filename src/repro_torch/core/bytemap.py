@@ -22,7 +22,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import backend, ops
 
 DEFAULT_BLOCK = 4096  # bytes per counter block
 
@@ -69,7 +69,10 @@ def build_np(data: np.ndarray, block: int = DEFAULT_BLOCK
 
 
 def build(data: np.ndarray, block: int = DEFAULT_BLOCK,
-          device: torch.device | str = "cpu") -> ByteMap:
+          device: torch.device | str | None = None) -> ByteMap:
+    """The bytemap of ``data`` on ``device``: the card by default (raising
+    when none is present), "cpu" for the plain path."""
+    device = backend.resolve_device(device)
     padded, counts, n = build_np(data, block)
     return ByteMap(data=torch.from_numpy(padded).to(device),
                    counts=torch.from_numpy(counts).to(device),

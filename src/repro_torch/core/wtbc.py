@@ -30,7 +30,7 @@ import torch
 
 from repro_torch.core import bytemap, scdc
 from repro_torch.core.bytemap import ByteMap
-from repro_torch.kernels import ops
+from repro_torch.kernels import backend, ops
 
 MAX_LEVELS = scdc.MAX_CODE_LEN  # 3
 SEP_RANK = 0                    # '$' is frequency-rank 0 by construction
@@ -83,14 +83,16 @@ def _flatten(doc_tokens: list[np.ndarray]) -> tuple[np.ndarray, np.ndarray]:
 
 def build_index(doc_tokens: list[np.ndarray], vocab_size: int,
                 block: int = bytemap.DEFAULT_BLOCK,
-                device: torch.device | str = "cpu"
+                device: torch.device | str | None = None
                 ) -> tuple[WTBCIndex, scdc.SCDCModel]:
     """Build the WTBC for a document collection.
 
     ``doc_tokens``: one int array of word ids per document, word id 0 reserved
     for the separator '$'.  Returns the index (query ids are *frequency
-    ranks*) and the fitted (s,c)-DC model.
+    ranks*) and the fitted (s,c)-DC model.  ``device`` defaults to the card
+    (raising when none is present); pass "cpu" for the plain path.
     """
+    device = backend.resolve_device(device)
     flat, doc_len = _flatten(doc_tokens)
     freqs = np.bincount(flat, minlength=vocab_size)
     model = scdc.fit(freqs, reserve_first=0)
@@ -100,9 +102,12 @@ def build_index(doc_tokens: list[np.ndarray], vocab_size: int,
 
 def build_index_with_model(doc_tokens: list[np.ndarray], model: scdc.SCDCModel,
                            block: int = bytemap.DEFAULT_BLOCK,
-                           device: torch.device | str = "cpu") -> WTBCIndex:
+                           device: torch.device | str | None = None
+                           ) -> WTBCIndex:
     """Build an index reusing an already-fitted (s,c)-DC model (so codewords
-    agree with another index built from the same model)."""
+    agree with another index built from the same model); on the card unless
+    ``device`` says otherwise."""
+    device = backend.resolve_device(device)
     flat, doc_len = _flatten(doc_tokens)
     ranks = model.rank_of_word[flat]
     return _build_from_ranks(ranks, model, doc_len, block, device)

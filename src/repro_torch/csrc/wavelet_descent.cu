@@ -6,14 +6,15 @@
 // word's occurrences in root range [lo, hi).
 //
 // What bounds it on the H100: memory latency, not bandwidth or arithmetic.
-// Each level's two tile positions depend on the previous level's ranks, so a
-// triple is a chain of up to three dependent gathers (counter cell + tile
-// prefix), and the bytes it needs are small (at most 3 x 2 x block prefix
-// bytes plus six 4-byte counter cells).  The TPU kernel DMAs whole tiles and
-// counter rows into VMEM; here a warp reads only the counter cell and the
-// tile prefix it needs, 16 bytes per lane per load, so the latency is hidden
-// by keeping many triples in flight: one warp per triple, 8 warps per block,
-// M / 8 blocks across the 132 SMs.
+// A triple's endpoints each walk a chain of up to three dependent ranks
+// (counter cell + part of a tile), and the bytes it needs are small.  The
+// TPU kernel DMAs whole tiles and counter rows into VMEM; here each
+// (triple, endpoint) gets its own warp (wtbc_descent.cuh:
+// warp_endpoint_rank), whose rank reads only the nearer end of the tile with
+// all its loads in flight at once, so a triple costs three memory round
+// trips in series instead of six ranks of several each.  The two warps of a
+// triple sit in one block and combine rb - ra through shared memory; many
+// triples stay in flight across the 132 SMs.
 //
 // Layout contract (checked by the Python wrapper): level data contiguous,
 // 16-byte aligned, n_blocks * block bytes with block a multiple of 16;
@@ -23,19 +24,27 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
+constexpr int kTriplesPerBlock = 2;  // two warps per triple
 
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+__global__ void __launch_bounds__(kTriplesPerBlock * 64)
 wavelet_count_kernel(wtbc::Levels lv, wtbc::WordTables t,
                      const int32_t* __restrict__ words,
                      const int32_t* __restrict__ los,
                      const int32_t* __restrict__ his,
                      int32_t* __restrict__ out, int m) {
-  const int i = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (i >= m) return;  // uniform across the warp
-  const int c = wtbc::warp_count_range(lv, t, __ldg(words + i), __ldg(los + i),
-                                       __ldg(his + i));
-  if ((threadIdx.x & 31) == 0) out[i] = c;
+  __shared__ int leaf[kTriplesPerBlock][2];
+  const int warp = threadIdx.x >> 5;
+  const int tri = warp >> 1, end = warp & 1;  // end 0: lo, 1: hi
+  const int i = blockIdx.x * kTriplesPerBlock + tri;
+  if (i < m) {  // uniform across the warp
+    const wtbc::WordPath w = wtbc::load_path(t, __ldg(words + i));
+    const int r = wtbc::warp_endpoint_rank(lv, w, __ldg((end ? his : los) + i));
+    if ((threadIdx.x & 31) == 0) leaf[tri][end] = r;
+  }
+  __syncthreads();
+  const int j = blockIdx.x * kTriplesPerBlock + threadIdx.x;
+  if (threadIdx.x < kTriplesPerBlock && j < m)
+    out[j] = leaf[threadIdx.x][1] - leaf[threadIdx.x][0];
 }
 
 }  // namespace
@@ -51,8 +60,8 @@ extern "C" int wavelet_count(const void* d0, const void* c0, int nb0, int len0,
   const wtbc::Levels lv = wtbc::make_levels(d0, c0, nb0, len0, d1, c1, nb1,
                                             len1, d2, c2, nb2, len2, block);
   const wtbc::WordTables t = wtbc::make_tables(cw, cw_len, node_off, base_rank);
-  const int blocks = (m + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  wavelet_count_kernel<<<blocks, kWarpsPerBlock * 32, 0,
+  const int blocks = (m + kTriplesPerBlock - 1) / kTriplesPerBlock;
+  wavelet_count_kernel<<<blocks, kTriplesPerBlock * 64, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       lv, t, static_cast<const int32_t*>(words),
       static_cast<const int32_t*>(los), static_cast<const int32_t*>(his),

@@ -108,9 +108,12 @@ def beam_loop(idx, st: MegaState, words, wmask, idf_w, *, k: int,
     (``overflowed`` is copied back from the kernel's int32 flags); on the
     CPU, or with ``kernel_backend="ref"``, the plain version runs.  The
     kernel reads the pool rows with their stride ``cap + 1`` and never
-    touches the scratch column.  Raises if a row hit
-    the kernel's trip bound (2·n_docs + 4 trips, more than any exact search
-    takes)."""
+    touches the scratch column.  The kernel keeps a summary of every chunk
+    of 256 slots in shared memory (56 bytes each), so ``cap`` is bounded by
+    what one block can hold (about 1 M slots on an H100); past it the launch
+    is refused and this raises.
+    Raises if a row hit the kernel's trip bound (2·n_docs + 4 trips, more
+    than any exact search takes)."""
     if not backend.use_kernel(words, kernel_backend):
         return beam_loop_ref(idx, st, words, wmask, idf_w, k=k,
                              conjunctive=conjunctive, max_pops=max_pops)

@@ -3,9 +3,10 @@
 Replaces the Pallas kernel family of ``repro/kernels/wavelet_descent.py``
 (``_kernel_tpu`` / ``_kernel_gpu`` around the shared ``_descent_levels``).
 For M (word, lo, hi) triples it counts the word's occurrences in root range
-[lo, hi) with two ranks per level, the three levels back to back inside one
-warp per triple (``csrc/wavelet_descent.cu``, device code shared with the
-beam loop through ``csrc/wtbc_descent.cuh``).  The plain version is
+[lo, hi): each endpoint's three levels back to back on its own warp, each
+rank counted from the nearer end of its tile, and the two warps of a triple
+combined in shared memory (``csrc/wavelet_descent.cu``, device code shared
+with the beam loop through ``csrc/wtbc_descent.cuh``).  The plain version is
 ``kernels/ref.py:wavelet_count_ref``.
 """
 from __future__ import annotations

@@ -210,7 +210,7 @@ def test_doc_geometry_matches_reference():
 def test_bytemap_rank_edges(n, block):
     rng = np.random.default_rng(n + block)
     data = rng.integers(0, 6, n).astype(np.uint8)
-    bm = p_bytemap.build(data, block=block)
+    bm = p_bytemap.build(data, block=block, device="cpu")
     pos = np.unique(np.clip(np.concatenate(
         [np.arange(0, n + 1, block), np.arange(0, n + 1, block) - 1,
          [0, n, n + 5], rng.integers(0, n + 1, 20)]), 0, n + 5))
@@ -265,7 +265,7 @@ def test_from_reference_round_trips():
 def test_bitvec_rank1_select1_match_reference(n_bits, dens):
     rng = np.random.default_rng(n_bits)
     sb = np.flatnonzero(rng.random(n_bits) < dens)
-    rbv, pbv = r_bitvec.build(sb, n_bits), p_bitvec.build(sb, n_bits)
+    rbv, pbv = r_bitvec.build(sb, n_bits), p_bitvec.build(sb, n_bits, device="cpu")
     assert pbv.n_bits == int(rbv.n_bits)
     pos = np.concatenate([rng.integers(-2, n_bits + 3, 200),
                           [0, n_bits, 1023, 1024, 1025, 2048]]).astype(np.int32)
@@ -286,7 +286,8 @@ def test_bitvec_rank1_select1_match_reference(n_bits, dens):
 def test_bytemap_select_access_match_reference(n, block):
     rng = np.random.default_rng(n + block)
     data = rng.integers(0, 6, n).astype(np.uint8)
-    rbm, pbm = r_bytemap.build(data, block=block), p_bytemap.build(data, block)
+    rbm = r_bytemap.build(data, block=block)
+    pbm = p_bytemap.build(data, block, device="cpu")
     b = rng.integers(0, 7, 300).astype(np.int32)
     j = np.concatenate([rng.integers(-1, n // 5 + 3, 294),
                         [0, 1, n // 6, n // 6 + 1, 10**6, -5]]).astype(np.int32)

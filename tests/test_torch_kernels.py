@@ -9,10 +9,15 @@
   the edge rows of the reference's fused-step tests (empty ranges and
   conjunctive misses, the undersized-pool overflow latch, a pop budget);
 * the pool frontier's pops and bulk pushes against the reference heap;
-* device-driven selection: CPU tensors never launch a kernel.
+* device-driven selection: CPU tensors never launch a kernel, and the index
+  builders default to the card;
+* the nearer-end rank identity the kernels' descent relies on, at every
+  position, against the plain and the reference rank.
 
 The kernels themselves build and run only on a GPU; the tests marked
-``cuda`` compare them with their plain versions there and skip elsewhere.
+``cuda`` compare them with their plain versions there (K1 at tile-edge
+triples, K2 at caps and query widths around its shared-memory summaries)
+and skip elsewhere.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -25,7 +30,7 @@ from repro.core import scoring as r_scoring
 from repro.core import wtbc as r_wtbc
 from repro.kernels import wavelet_descent as r_wd
 from repro.text import corpus as r_corpus
-from repro_torch.core import bytemap, scoring
+from repro_torch.core import bitvec, bytemap, scoring
 from repro_torch.core import heap as p_heap
 from repro_torch.core import mega as p_mega
 from repro_torch.core import wtbc as p_wtbc
@@ -103,16 +108,94 @@ def test_kernel_selection_follows_device():
     assert backend.resolve_device("cpu").type == "cpu"
 
 
+def _near_rank_np(padded, counts, length, block, byte, pos):
+    """The nearer-end rank of ``csrc/wtbc_descent.cuh`` (warp_rank_near) in
+    numpy: p's tile counted from its start up to p, or — when p lies past
+    the middle of the tile's logical bytes — from p up to the tile's last
+    logical byte, subtracted from the next counter row.  Returns the ranks
+    and whether each came from the back."""
+    n_blocks = counts.shape[0] - 1
+    blk = np.minimum(pos // block, n_blocks - 1)
+    start = blk * block
+    cut = pos - start
+    valid = np.minimum(block, length - start)
+    back = cut > valid // 2
+    csum = np.concatenate([[0], np.cumsum(padded == byte)])
+    suffix = csum[start + valid] - csum[start + cut]
+    prefix = csum[start + cut] - csum[start]
+    assert np.all(np.where(back, valid - cut, cut) <= (valid + 1) // 2)
+    rank = np.where(back, counts[blk + 1, byte] - suffix,
+                    counts[blk, byte] + prefix)
+    return rank, back
+
+
+@pytest.mark.parametrize("block,length", [
+    (64, 64 * 5 + 37), (64, 64 * 6), (512, 512 * 3 + 101), (512, 512 * 4),
+    (4096, 4096 * 2 + 1500), (4096, 4096 * 2), (512, 300), (64, 0)])
+def test_nearer_end_rank_identity(block, length):
+    """counts[blk + 1] - #(tile[cut, valid)) is the rank at every position,
+    for the bytes that occur (byte 0 too, which the zero padding of the last
+    tile would add if the suffix ran past the tile's logical bytes) and one
+    that does not: equal to the port's plain rank and to the reference's.
+    Every position covers p = length (at a block edge where length is a
+    multiple of the block) and cut = valid / 2 - 1, valid / 2, valid / 2 + 1."""
+    import jax
+    from repro.core import bytemap as r_bytemap
+    rng = np.random.default_rng(block + length)
+    data = rng.integers(0, 4, length).astype(np.uint8)
+    pbm = bytemap.build(data, block=block, device="cpu")
+    rbm = r_bytemap.build(data, block=block)
+    padded, counts = pbm.data.numpy(), pbm.counts.numpy()
+    pos = np.arange(length + 1)
+    r_rank = jax.jit(jax.vmap(lambda b, p: r_bytemap.rank(rbm, b, p)))
+    for byte in (0, 1, 2, 3, 9):
+        near, back = _near_rank_np(padded, counts, length, block, byte, pos)
+        plain = bytemap.rank(pbm, torch.full((len(pos),), byte,
+                                             dtype=torch.int32),
+                             torch.from_numpy(pos.astype(np.int32))).numpy()
+        want = np.concatenate([np.asarray(r_rank(
+            jnp.full(len(c), byte, jnp.int32), jnp.asarray(c, jnp.int32)))
+            for c in np.array_split(pos, max(1, len(pos) // 2048))])
+        np.testing.assert_array_equal(near, plain, err_msg=f"byte {byte}")
+        np.testing.assert_array_equal(near, want, err_msg=f"byte {byte}")
+        np.testing.assert_array_equal(
+            near, [np.count_nonzero(data[:p] == byte) for p in pos])
+    if length:
+        assert back.any() and (~back).any()
+
+
+def test_builders_default_to_the_card():
+    """Without ``device`` the index builders place their arrays on the card,
+    and raise when there is none."""
+    cp = r_corpus.make_corpus(n_docs=8, mean_doc_len=10, vocab_size=40, seed=0)
+    data = np.arange(100, dtype=np.uint8)
+    model = p_wtbc.build_index(cp.doc_tokens, cp.vocab_size, block=64,
+                               device="cpu")[1]
+    calls = (lambda: p_wtbc.build_index(cp.doc_tokens, cp.vocab_size,
+                                        block=64)[0].device,
+             lambda: p_wtbc.build_index_with_model(cp.doc_tokens, model,
+                                                   block=64).device,
+             lambda: bytemap.build(data, block=64).data.device,
+             lambda: bitvec.build(np.array([1, 5]), 40).words.device)
+    for call in calls:
+        if torch.cuda.is_available():
+            assert call().type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                call()
+
+
 def test_kernel_argument_checks():
     """What the device code assumes is checked before any launch."""
     data = np.random.default_rng(0).integers(0, 5, 700).astype(np.uint8)
-    good = bytemap.build(data, block=512)
-    bad_block = bytemap.build(data, block=200)
+    good = bytemap.build(data, block=512, device="cpu")
+    bad_block = bytemap.build(data, block=200, device="cpu")
     assert wavelet_descent.level_args((good,) * 3)[-1] == 512
     with pytest.raises(ValueError, match="multiple of 16"):
         wavelet_descent.level_args((bad_block,) * 3)
     with pytest.raises(ValueError, match="block size"):
-        wavelet_descent.level_args((good, good, bytemap.build(data, block=1024)))
+        wavelet_descent.level_args(
+            (good, good, bytemap.build(data, block=1024, device="cpu")))
     _, _, _, pidx = builds(512)
     with pytest.raises(ValueError, match="cw"):
         wavelet_descent.table_args(pidx.cw.to(torch.int32), pidx.cw_len,
@@ -323,6 +406,164 @@ def test_beam_loop_kernel_matches_plain_on_card(mode):
     want = p_mega.topk_dr_mega(idx, w, m, idf, kernel_backend="ref", **kw)
     for name in LEAVES:
         assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+def _block_edge_triples(idx, rng, n_words=24):
+    """(words, los, his) whose endpoints land on tile edges: root positions
+    at every block edge and one either side (and at n, and lo = hi), and,
+    for words of two or more levels, root positions chosen by select so that
+    the level-1 position is a block edge or one either side of it."""
+    n, block = idx.n, idx.levels[0].block
+    edges = np.arange(0, n + 1, block)
+    pos0 = np.unique(np.clip(np.concatenate([edges - 1, edges, edges + 1,
+                                             [n]]), 0, n))
+    deep = torch.nonzero(idx.cw_len >= 2).reshape(-1).numpy()
+    words = rng.choice(deep, min(n_words, len(deep)), replace=False)
+    w_out, lo_out, hi_out = [], [], []
+    for w in words:
+        p1 = rng.permutation(pos0)
+        w_out.append(np.full(len(pos0), w))
+        lo_out.append(np.minimum(pos0, p1))
+        hi_out.append(np.maximum(pos0, p1))
+        # level 1: root endpoint x with rank0(x) - base0 = E - off1
+        lv1 = idx.levels[1]
+        e1 = np.arange(0, lv1.length + 1, lv1.block)
+        off1 = int(idx.node_off[w, 1])
+        t = np.concatenate([e1 - 1, e1, e1 + 1]) - off1
+        occ = int(idx.levels[0].counts[-1, int(idx.cw[w, 0])]) - int(
+            idx.base_rank[w, 0])
+        t = t[(t >= 1) & (t <= occ)]
+        if len(t) == 0:
+            continue
+        j = torch.from_numpy((t + int(idx.base_rank[w, 0])).astype(np.int32))
+        x = bytemap.select(idx.levels[0], torch.full_like(j, int(idx.cw[w, 0])),
+                           j).numpy() + 1
+        w_out.append(np.full(len(x), w))
+        lo_out.append(np.zeros(len(x), np.int64))
+        hi_out.append(x)
+        w_out.append(np.full(len(x), w))
+        lo_out.append(x - 1)
+        hi_out.append(np.full(len(x), n))
+    return tuple(torch.from_numpy(np.concatenate(a).astype(np.int32))
+                 for a in (w_out, lo_out, hi_out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [64, 512])
+def test_wavelet_count_kernel_block_edges_on_card(block):
+    """K1 against its plain version where the nearer-end rank switches
+    sides: endpoints at tile edges of levels 0 and 1, the last tile."""
+    _need_card()
+    cp = r_corpus.make_corpus(n_docs=200, mean_doc_len=40, vocab_size=300,
+                              seed=11)
+    cpu, _ = p_wtbc.build_index(cp.doc_tokens, cp.vocab_size, block=block,
+                                device="cpu")
+    idx, _ = p_wtbc.build_index(cp.doc_tokens, cp.vocab_size, block=block,
+                                device="cuda")
+    trip = [x.cuda() for x in _block_edge_triples(cpu, np.random.default_rng(5))]
+    args = (idx.levels, idx.cw, idx.cw_len, idx.node_off, idx.base_rank,
+            *trip)
+    got = wavelet_descent.wavelet_count(*args)
+    want = wavelet_descent.wavelet_count(*args, kernel_backend="ref")
+    assert torch.equal(got, want)
+    assert torch.equal(want.cpu(), wavelet_descent.wavelet_count(
+        cpu.levels, cpu.cw, cpu.cw_len, cpu.node_off, cpu.base_rank,
+        *(x.cpu() for x in trip)))
+
+
+def _state_leaves(st):
+    cap = st.pool.cap
+    return (*(x[:, :cap] for x in st.pool[:4]), *st.pool[4:], *st[1:])
+
+
+def _beam_both(idx, words, mask, *, k, conjunctive, cap, max_pops=None):
+    """The kernel and the plain loop from the same initial state, on the
+    index's device: every state array (the pools without their scratch
+    column) bitwise."""
+    dev = idx.device
+    w, m = torch.from_numpy(words).to(dev), torch.from_numpy(mask).to(dev)
+    idf = scoring.TfIdf().idf(idx)
+    idf_w = torch.where(m, idf[w.long()], 0.0).to(torch.float32)
+    st = p_mega.init_state(idx, w, m, idf_w, k=k, conjunctive=conjunctive,
+                           cap=cap, kernel_backend="ref")
+    kw = dict(k=k, conjunctive=conjunctive, max_pops=max_pops)
+    got = beam_step.beam_loop(idx, st.clone(), w, m, idf_w, **kw)
+    want = beam_step.beam_loop(idx, st.clone(), w, m, idf_w,
+                               kernel_backend="ref", **kw)
+    for i, (x, y) in enumerate(zip(_state_leaves(got), _state_leaves(want))):
+        assert torch.equal(x, y), f"state array {i}"
+    return got
+
+
+# a corpus whose `or` frontiers pass 256 slots (one summary chunk)
+_WIDE = (1500, 30, 2000, 5)       # docs, mean length, vocabulary, seed
+
+
+def _wide_batch(Q, seed):
+    """Rows of Q - 1 (at least 1) words of document frequency 100-900, and a
+    last row that adds two words of one document each (a conjunctive
+    miss)."""
+    cp, _, rmodel, _ = builds(512, _WIDE)
+    df = cp.doc_freqs()
+    ids = np.arange(1, len(df))
+    pool = ids[(df[ids] >= 100) & (df[ids] <= 900)]
+    common = ids[np.argsort(-df[ids])][:150]
+    rare = ids[df[ids] == 1]
+    rng = np.random.default_rng(seed)
+    nw = max(1, Q - 1)
+    src = pool if nw <= len(pool) else common
+    rows = [rng.choice(src, nw, replace=False) for _ in range(3)]
+    rows.append(np.concatenate([rare[:2], src[:nw]])[:max(nw, min(Q, 2))])
+    words = np.zeros((4, Q), np.int32)
+    mask = np.zeros((4, Q), bool)
+    for r, row in enumerate(rows):
+        words[r, :len(row)] = rmodel.rank_of_word[row]
+        mask[r, :len(row)] = True
+    return cp, words, mask
+
+
+def _chunk_crossed(st) -> bool:
+    """Some row holds a segment past the first summary chunk."""
+    return bool((st.pool.scores[:, 256:st.pool.cap] > float("-inf")).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [1, 255, 256, 257, None])
+@pytest.mark.parametrize("mode", ["and", "or"])
+def test_beam_loop_kernel_caps_on_card(mode, cap):
+    """Caps around one summary chunk (256 slots) and n_docs + 2; the small
+    ones latch overflow on `or` rows."""
+    _need_card()
+    cp, words, mask = _wide_batch(4, 17)
+    idx, _ = p_wtbc.build_index(cp.doc_tokens, cp.vocab_size, block=512,
+                                device="cuda")
+    cap = idx.n_docs + 2 if cap is None else cap
+    st = _beam_both(idx, words, mask, k=400, conjunctive=mode == "and",
+                    cap=cap)
+    if cap <= 257 and mode == "or":
+        assert bool(st.pool.overflowed.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q", [1, 3, 4, 8, 64])
+def test_beam_loop_kernel_queries_on_card(Q):
+    """Q words per row (2·Q descent warps, past the block's 16 at Q = 64),
+    and/or, with and without a pop budget; a conjunctive miss (Q >= 2);
+    `or` rows whose frontier crosses a summary chunk under the budget
+    (Q >= 3: one or two words keep it smaller)."""
+    _need_card()
+    cp, words, mask = _wide_batch(Q, Q)
+    idx, _ = p_wtbc.build_index(cp.doc_tokens, cp.vocab_size, block=512,
+                                device="cuda")
+    for mode in ("or", "and"):
+        for budget in (None, 400):
+            st = _beam_both(idx, words, mask, k=400,
+                            conjunctive=mode == "and", cap=idx.n_docs + 2,
+                            max_pops=budget)
+            if mode == "or" and budget is not None and Q >= 3:
+                assert _chunk_crossed(st)
+            if mode == "and" and Q >= 2:
+                assert int(st.n_out[3]) == 0          # the miss row
 
 
 # ---------------------------------------------------------------------------

@@ -64,7 +64,7 @@ def test_byte_rank_plain_matches_reference_kernel(n, block):
     rng = np.random.default_rng(n + block)
     data = rng.integers(0, 12, n).astype(np.uint8)
     rbm = r_bytemap.build(data, block=block)
-    pbm = bytemap.build(data, block=block)
+    pbm = bytemap.build(data, block=block, device="cpu")
     pos = edge_positions(rng, n, block, 40)
     byt = rng.integers(0, 13, len(pos)).astype(np.int32)
     before = backend.launch_counts()
@@ -107,7 +107,7 @@ def test_bitmap_rank1_plain_matches_reference_kernel(n_bits, dens):
     rng = np.random.default_rng(n_bits)
     set_bits = np.flatnonzero(rng.random(n_bits) < dens)
     rbv = r_bitvec.build(set_bits, n_bits)
-    pbv = bitvec.build(set_bits, n_bits)
+    pbv = bitvec.build(set_bits, n_bits, device="cpu")
     np.testing.assert_array_equal(np.asarray(rbv.words).view(np.int32),
                                   pbv.words.numpy())
     np.testing.assert_array_equal(np.asarray(rbv.counts), pbv.counts.numpy())
@@ -133,7 +133,7 @@ def test_segment_tf_plain_matches_reference_kernel(byte):
     n = 20000
     data = rng.integers(0, 16, n).astype(np.uint8)
     rbm = r_bytemap.build(data, block=1024)
-    pbm = bytemap.build(data, block=1024)
+    pbm = bytemap.build(data, block=1024, device="cpu")
     bounds = np.sort(np.concatenate([
         rng.choice(n + 1, size=40, replace=False), [0, n, 1024, 2048, 2047]])
     ).astype(np.int32)
