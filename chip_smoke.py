@@ -9,7 +9,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 Phases (any failure exits non-zero; no phase is caught and ignored, and
 nothing falls back to the CPU):
 
-1. build  — compile the six CUDA kernels from ``src/repro_torch/csrc`` (one
+1. build  — compile the seven CUDA kernels from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all at once); print the card's name and power limit.
 2. data   — a quarter of the paper's ALL collection (718,691-word vocabulary,
    Zipf 1.2, mean 633 tokens per document): 86,445 documents, about 55 M
@@ -34,21 +34,36 @@ nothing falls back to the CPU):
    batch per core.
 7. DRB aux — the tf bitmaps of WTBC-DRB built on the host for the same
    corpus; build time and bytes beside the index's bytes.
-8. K3 ``bitmap_rank1``, K5 ``byte_rank``, K4 ``segment_tf`` and K6
+8. ``drb_walk`` (the whole DRB ``and`` walk in one launch) against the
+   plain walk on the card, every leaf bitwise: the words of the four
+   batches under tf-idf and BM25, a P = 16 batch and a budgeted batch, and
+   a batch whose rows each take a band-ii word and two more frequent words
+   of one document (``doc_batch``: every row has hits, so the walk scores
+   and merges candidates) under tf-idf and BM25 at P = 1 and 16.
+   K3 ``bitmap_rank1``, K5 ``byte_rank``, K4 ``segment_tf`` and K6
    ``scored_topk`` against their plain versions on the card, bitwise:
    random inputs with their edges, plus every call that real DRB searches
-   (and/or, tf-idf and BM25) and a snippet decode made, recorded in phase 7
-   — K1 at each DRB and trip's triples, K6 at each DRB or batch with its
-   mask; K4 over every document bound; K6 at C = 10^6, d = 128.
+   and a snippet decode made, recorded in phase 7 (the plain ``and`` walk
+   called through ``drb.topk_drb_and(..., kernel_backend="ref")``, since
+   the engine routes ``and`` to ``drb_walk``; ``or`` under tf-idf and
+   BM25) — K1 at each plain ``and`` trip's triples, K3 at its cursor
+   ranks, K6 at each DRB or batch with its mask; K4 over every document
+   bound; K6 at C = 10^6, d = 128.
 9. the DRB path — launch counters reset, then ``search(strategy="drb")``
-   under tf-idf and BM25 on the four batches of phase 2 and ``snippets`` of
+   under tf-idf and BM25 on the four batches of phase 2 and the ``and``
+   batch of one document's words, and ``snippets`` of
    every hit, as a user calls them: DRB tf-idf equals the mega core, BM25
    equals a brute-force BM25 computed on the host in numpy from the
    corpus's tokens (two queries per batch), snippets equal the corpus's
-   tokens, and K1, K3, K5 and K6 were launched.
+   tokens; each ``and`` batch was one ``drb_walk`` launch with no K1 or K3
+   launch, and K3, K5 and K6 were launched.
 10. timings of the new kernels (device time, wrapper time, plain time,
-   bound, K6's library time), DRB ms per batch, and the device's idle share
-   on one DRB ``or`` batch.
+   bound, K6's library time; ``drb_walk`` per ``and`` iii batch and per
+   trip of its longest row, its bound from what the plain walk's selects
+   (from the nearer end of the block), documents, counts and ranks of valid
+   words read), DRB ms per batch, and the device's
+   idle share on one DRB ``or`` batch and on the ``and`` ii and iii
+   batches.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -171,39 +186,44 @@ def quarter_all_corpus(n_docs: int, seed: int):
 
 class OpsRecorder:
     """Records the arguments of every call to one ``kernels.ops`` entry
-    point (by default ``wavelet_count_batch``'s (words, los, his)) while a
-    search runs, by wrapping it for the duration: ``keep`` gets the call's
-    arguments and returns those to record (tensors are cloned)."""
+    point (by default ``wavelet_count_batch``'s (words, los, his)), or to a
+    function of another ``module``, while a search runs, by wrapping it for
+    the duration: ``keep`` gets the call's arguments and returns those to
+    record (tensors are cloned)."""
 
     def __init__(self, name: str = "wavelet_count_batch",
-                 keep=lambda *a, **kw: a[5:8]):
-        self.name, self.keep = name, keep
+                 keep=lambda *a, **kw: a[5:8], module=None):
+        self.name, self.keep, self.module = name, keep, module
         self.calls = []
 
     def __enter__(self):
         from repro_torch.kernels import ops
-        self._ops, self._orig = ops, getattr(ops, self.name)
+        self._mod = ops if self.module is None else self.module
+        self._orig = getattr(self._mod, self.name)
 
         def wrapped(*args, **kw):
             self.calls.append(tuple(x.clone() if hasattr(x, "clone") else x
                                     for x in self.keep(*args, **kw)))
             return self._orig(*args, **kw)
-        setattr(ops, self.name, wrapped)
+        setattr(self._mod, self.name, wrapped)
         return self
 
     def __exit__(self, *exc):
-        setattr(self._ops, self.name, self._orig)
+        setattr(self._mod, self.name, self._orig)
 
 
 
-def near_bytes(bm, byte, pos) -> tuple[int, int]:
+def near_bytes(bm, byte, pos, *, select=False) -> tuple[int, int]:
     """(bytes, byte compares) that byte ranks of ``byte`` at ``pos`` in one
     level need when each counts the nearer end of its tile: a cut past half
     the tile's logical bytes (valid = min(block, length - blk*block)) counts
     the suffix [cut, valid) against the next counter row, any other cut the
     prefix [0, cut) against its own.  Bytes: per block the union of the
     prefixes and suffixes read (capped at valid) and each distinct counter
-    cell, each read once; compares: every byte each rank counts."""
+    cell, each read once; compares: every byte each rank counts.  With
+    ``select``, ``pos`` are the positions that selects found: each reads
+    the found byte too, the prefix [0, cut] or the suffix [cut, valid),
+    whichever is shorter."""
     import torch
     pos = pos.to(torch.int64).reshape(-1).clamp(0, bm.length)
     byte = torch.as_tensor(byte, device=pos.device).to(torch.int64)
@@ -214,14 +234,15 @@ def near_bytes(bm, byte, pos) -> tuple[int, int]:
     starts = torch.arange(nb, device=pos.device, dtype=torch.int64) * bm.block
     valid_b = (bm.length - starts).clamp(max=bm.block)
     valid = valid_b[blk]
-    back = cut > valid // 2
+    head = cut + int(select)              # bytes of the prefix read
+    back = valid - cut < head if select else cut > valid // 2
     front = torch.zeros(nb, dtype=torch.long, device=pos.device)
-    front.scatter_reduce_(0, blk[~back], cut[~back], "amax")
+    front.scatter_reduce_(0, blk[~back], head[~back], "amax")
     back_lo = valid_b.clone()
     back_lo.scatter_reduce_(0, blk[back], cut[back], "amin")
     tiles = torch.minimum(valid_b, front + valid_b - back_lo)
     cells = torch.unique((blk + back.long()) * 256 + byte)
-    compares = torch.where(back, valid - cut, cut)
+    compares = torch.where(back, valid - cut, head)
     return int(tiles.sum()) + 4 * int(cells.numel()), int(compares.sum())
 
 
@@ -302,6 +323,78 @@ def block_edge_triples(idx, rng, n_words: int = 12, per_word: int = 512):
         out.append((np.full(len(x), w), x - 1, np.full(len(x), n)))
     return tuple(torch.from_numpy(np.concatenate([o[i] for o in out]).astype(
         np.int32)).to(dev) for i in range(3))
+
+
+def walk_bytes(idx, aux, qt, sel_calls, doc_calls, cnt_calls, rank_calls
+               ) -> tuple[int, int]:
+    """(bytes, byte compares) the DRB ``and`` walk needs, from the calls its
+    plain version made (a stopped row or a dead lane repeats a live one's
+    query, so distinct queries count, and only those of valid words — the
+    kernel skips masked columns and stopwords): each select's found byte
+    and the bytes before or after it in its block, whichever are fewer,
+    with the counter cell at that end (``near_bytes(select=True)``), the
+    descent's nearer tile ends (``descent_bytes``), each bitmap block of a
+    cursor rank (128 bytes and its counter), and each candidate document's
+    two separators and length."""
+    import torch
+    from repro_torch.core import bytemap, wtbc
+    nb = ops = 0
+    for lv in idx.levels:
+        qs = [(b.reshape(-1).long(), j.reshape(-1).long())
+              for bm, b, j in sel_calls if bm is lv]
+        if not qs:
+            continue
+        bj = torch.unique(torch.stack([torch.cat([x[0] for x in qs]),
+                                       torch.cat([x[1] for x in qs])], 1),
+                          dim=0)
+        bj = bj[(bj[:, 1] >= 1) & (bj[:, 1] <= lv.counts[-1][bj[:, 0]])]
+        pos = bytemap.select(lv, bj[:, 0], bj[:, 1]).long()
+        sb, sops = near_bytes(lv, bj[:, 0], pos, select=True)
+        nb += sb
+        ops += sops
+    docs = torch.unique(wtbc.doc_of_pos(idx, torch.unique(torch.cat(
+        [c[0].reshape(-1) for c in doc_calls]))))
+    nb += 12 * docs.numel()
+    B, Q = qt.valid.shape
+    ok_cnt, ok_rank, words, los, his, rank_pos = [], [], [], [], [], []
+    for (w, lo, hi), (pos,) in zip(cnt_calls, rank_calls):
+        P = w.numel() // B // Q - 1       # a trip counts B x (P·Q + Q)
+        ok_cnt.append(qt.valid.repeat(1, P + 1).reshape(-1))
+        ok_rank.append(qt.valid.reshape(-1).repeat(2))  # off + cnt, off
+        words.append(w)
+        los.append(lo)
+        his.append(hi)
+        rank_pos.append(pos.reshape(-1))
+    ok = torch.cat(ok_cnt)
+    dn, dops = descent_bytes(idx, torch.cat(words)[ok], torch.cat(los)[ok],
+                             torch.cat(his)[ok], distinct_nonempty=True)
+    rank_pos = torch.cat(rank_pos)[torch.cat(ok_rank)].long()
+    blocks = torch.unique(torch.clamp(rank_pos.clamp(0, aux.bv.n_bits) // 1024,
+                                      max=aux.bv.counts.numel() - 2))
+    return nb + dn + (128 + 4) * blocks.numel(), ops + dops
+
+
+def doc_batch(cp, engine, rng, band, n_rows: int, n_words: int = 3
+              ) -> np.ndarray:
+    """(n_rows, n_words) word ids whose ``and`` has hits: each row takes the
+    words of one document of the corpus — one of df in ``band`` (the
+    rarest, whose occurrences the DRB walk follows) and others more
+    frequent, all with a tf bitmap — in a random column order."""
+    rank = engine.model.rank_of_word
+    df = engine.idx.df.cpu().numpy()
+    has_bm = engine.aux.has_bm.cpu().numpy()
+    lo, hi = band
+    out = []
+    while len(out) < n_rows:
+        toks = np.unique(cp.doc_tokens[rng.integers(0, cp.n_docs)])
+        r = rank[toks]
+        anchor = toks[has_bm[r] & (df[r] >= lo) & (df[r] <= hi)]
+        rest = toks[has_bm[r] & (df[r] > hi)]
+        if len(anchor) and len(rest) >= n_words - 1:
+            out.append(rng.permutation(np.concatenate([
+                rng.choice(anchor, 1),
+                rng.choice(rest, n_words - 1, replace=False)])))
+    return np.stack(out)
 
 
 def bm25_bruteforce(tokens, ends, n_docs: int, words, *, mode: str, k: int,
@@ -666,14 +759,16 @@ def main(argv=None) -> int:
 
 
 def drb_phases(engine, cp, batches, kind) -> tuple[list[dict], int]:
-    """Phases 7-10: the DRB aux, K3/K5/K4/K6 (and K1 at the DRB trips)
-    against their plain versions, the DRB path as a user calls it, and the
-    timings.  Returns the new kernels' rows of the ``{"kernels": ...}``
-    line and K1's largest error at the DRB trips."""
+    """Phases 7-10: the DRB aux, drb_walk and K3/K5/K4/K6 (and K1 at the
+    plain DRB and trips) against their plain versions, the DRB path as a
+    user calls it, and the timings.  Returns the rows of the ``{"kernels":
+    ...}`` line from K3 on and K1's largest error at the DRB trips."""
     import torch
-    from repro_torch.core import wtbc
+    from repro_torch.core import bytemap, drb, wtbc
     from repro_torch.kernels import (backend, bitmap_rank, byte_rank,
                                      segment_tf, topk_score)
+    from repro_torch.kernels import drb_walk as walk
+    from repro_torch.text import corpus as tcorpus
     dev = engine.device
     idx = engine.idx
     measures = {m: engine._resolve_measure(m) for m in ("tfidf", "bm25")}
@@ -689,24 +784,41 @@ def drb_phases(engine, cp, batches, kind) -> tuple[list[dict], int]:
     log(f"DRB aux: built on the host in {t_aux:.2f} s; {drb_bytes} bytes "
         f"({aux.bv.n_bits} bits) beside the index's {idx_bytes} bytes on "
         f"{kind}: +{100.0 * drb_bytes / idx_bytes:.2f}%")
+    # a fifth ``and`` batch whose rows have hits (the four batches' ``and``
+    # rows of three random band ii/iii words share no document)
+    doc_q = doc_batch(cp, engine, np.random.default_rng(SEED + 5),
+                      tcorpus.fdoc_bands(cp.n_docs)["ii"], B)
+    batches = batches + [("and", "doc", doc_q)]
 
-    # the inputs every kernel gets from real DRB searches (and and or, tf-idf
-    # and BM25) and from a snippet decode.  These calls launch the kernels;
-    # phase 9 resets the counters before the measured run.
+    def and_walk(q, mname, kb, **kw):
+        """DRB ``and`` through its core, as the engine's executor calls it;
+        ``kb="ref"`` runs the plain walk (the engine routes to the kernel)."""
+        r, m_ = engine._encode_queries(q)
+        meas = measures[mname]
+        return drb.topk_drb_and(
+            idx, aux, torch.from_numpy(r).to(dev), torch.from_numpy(m_).to(dev),
+            meas, k=K, idf=engine._idf_table(meas),
+            avg_dl=engine._avg_doc_len(), kernel_backend=kb, **kw)
+
+    # the inputs every kernel gets from real DRB searches (the plain ``and``
+    # walk, whose trips make the K1 and K3 calls the kernel now makes inside
+    # itself; ``or`` under tf-idf and BM25) and from a snippet decode.  These
+    # calls launch the kernels; phase 9 resets the counters before the
+    # measured run.
     with OpsRecorder("bitmap_rank1_batch", lambda bv, pos, **kw: (pos,)) \
             as rec_k3, \
             OpsRecorder("rank_batch", lambda bm, b, p, **kw: (bm, b, p)) \
             as rec_k5, OpsRecorder() as rec_k1, \
             OpsRecorder("scored_topk", lambda c, q, **kw: (
                 c, q, kw["valid"], kw["k"], kw["tile"])) as rec_k6:
-        for (mode, band, q), mname in ((batches[0], "tfidf"),
-                                       (batches[1], "tfidf"),
-                                       (batches[1], "bm25")):
-            res = engine.search(q, k=K, mode=mode, strategy="drb",
-                                measure=mname)
+        and_walk(batches[0][2], "tfidf", "ref")
+        for mname in ("tfidf", "bm25"):
+            res = engine.search(batches[1][2], k=K, mode="or",
+                                strategy="drb", measure=mname)
         engine.snippets(res, length=8)
     k5_snip = [c for c in rec_k5.calls if c[1].numel()]
-    log(f"recorded from DRB searches: {len(rec_k1.calls)} wavelet_count, "
+    log(f"recorded from DRB searches (the plain and walk, or): "
+        f"{len(rec_k1.calls)} wavelet_count, "
         f"{len(rec_k3.calls)} bitmap_rank1, {len(rec_k5.calls)} byte_rank, "
         f"{len(rec_k6.calls)} scored_topk calls")
 
@@ -734,6 +846,45 @@ def drb_phases(engine, cp, batches, kind) -> tuple[list[dict], int]:
     log(f"K3 bitmap_rank1 == plain on {len(k3_sets)} position sets "
         f"({sum(p.numel() for _, p in k3_sets)} positions): bitwise")
 
+    # drb_walk (the whole DRB and walk) against the plain walk, every leaf:
+    # the four batches' words under both measures, P = 16, a budget
+    names = ("docs", "scores", "n_found", "iters", "pops", "overflowed",
+             "padded", "certified", "bound")
+    walk_cases = [(mname, i, {}) for mname in measures for i in range(4)] \
+        + [("bm25", 0, dict(beam_width=16)), ("tfidf", 2, dict(max_pops=5))]
+    walk_trips = 0
+    for mname, i, kw in walk_cases:
+        mode, band, q = batches[i]
+        got = and_walk(q, mname, "auto", **kw)
+        want = and_walk(q, mname, "ref", **kw)
+        torch.cuda.synchronize()
+        bad = leaves_equal(got, want, names)
+        check(not bad, f"drb_walk differs from the plain walk ({mname}, "
+              f"words of the {mode} band {band} batch, {kw}): {bad}")
+        walk_trips += int(got.iters.sum())
+    log(f"drb_walk == plain walk on {len(walk_cases)} batches (four "
+        f"batches x tf-idf/BM25, P = 16, budget 5; {walk_trips} row trips): "
+        f"every leaf bitwise")
+    # rows of one document's words, so every row has hits and the walk
+    # scores and merges present candidates
+    walk_trips = merged = 0
+    for mname in measures:
+        for P in (1, 16):
+            got = and_walk(doc_q, mname, "auto", beam_width=P)
+            want = and_walk(doc_q, mname, "ref", beam_width=P)
+            torch.cuda.synchronize()
+            check(bool((want.n_found > 0).all()), f"a row of one document's "
+                  f"words found no document ({mname}, P = {P}): "
+                  f"{want.n_found.tolist()}")
+            bad = leaves_equal(got, want, names)
+            check(not bad, f"drb_walk differs from the plain walk ({mname}, "
+                  f"rows of one document's words, P = {P}): {bad}")
+            walk_trips += int(got.iters.sum())
+            merged += int(got.n_found.sum())
+    log(f"drb_walk == plain walk on rows of one document's words (tf-idf/"
+        f"BM25 x P = 1/16; {walk_trips} row trips, {merged} hits kept, "
+        f"n_found {got.n_found.tolist()}): every leaf bitwise")
+
     # K1 at the triples of real DRB and trips: B·(P·Q + Q) per trip
     k1_err = 0
     for words, los, his in rec_k1.calls:
@@ -744,7 +895,7 @@ def drb_phases(engine, cp, batches, kind) -> tuple[list[dict], int]:
         k1_err = max(k1_err, int((got - want).abs().max()))
         check(torch.equal(got, want), "wavelet_count differs from its plain "
               "version on the triples of a DRB and trip")
-    check(len(rec_k1.calls) > 0, "no DRB trip launched wavelet_count")
+    check(len(rec_k1.calls) > 0, "the plain DRB and walk made no count")
     log(f"K1 wavelet_count == plain on the triples of {len(rec_k1.calls)} "
         f"DRB and trips ({sum(c[0].numel() for c in rec_k1.calls)} "
         f"triples): bitwise")
@@ -856,8 +1007,15 @@ def drb_phases(engine, cp, batches, kind) -> tuple[list[dict], int]:
         snips[i] = (res, engine.snippets(res, length=8))
     drb_counts = backend.launch_counts()
     log("DRB path launches: " + json.dumps(drb_counts))
-    for name in ("wavelet_count", "bitmap_rank1", "byte_rank", "scored_topk"):
+    for name in ("drb_walk", "bitmap_rank1", "byte_rank", "scored_topk"):
         check(drb_counts[name] > 0, f"{name} never launched on the DRB path")
+    for key, c in per_batch.items():
+        if " and " in key:
+            check(c["drb_walk"] == 1 and c["wavelet_count"] == 0
+                  and c["bitmap_rank1"] == 0, f"DRB {key} is not one "
+                  f"drb_walk launch: {c}")
+    log("DRB and: one drb_walk launch per batch, no wavelet_count or "
+        "bitmap_rank1 launch")
 
     for i, (mode, band, q) in enumerate(batches):
         res, ref_ = drb_res[("tfidf", i)], mega[i]
@@ -870,7 +1028,7 @@ def drb_phases(engine, cp, batches, kind) -> tuple[list[dict], int]:
             found = r.scores[r.scores > -np.inf]
             check(bool(torch.isfinite(found).all()), "non-finite DRB scores")
             check(tuple(r.docs.shape) == (B, K), "DRB result shape")
-    log("DRB tf-idf == mega core on all four batches: docs, scores, n_found "
+    log("DRB tf-idf == mega core on all five batches: docs, scores, n_found "
         "bitwise")
     tokens = np.concatenate(cp.doc_tokens)
     ends = np.cumsum([len(t) for t in cp.doc_tokens])
@@ -974,6 +1132,73 @@ def drb_phases(engine, cp, batches, kind) -> tuple[list[dict], int]:
         log(f"DRB {mname} (or, band ii): device busy {busy:.3f} ms of "
             f"{wall:.3f} ms wall, idle share {1 - busy / wall:.4f}")
 
+    # drb_walk: one DRB and batch (band iii, tf-idf, P = 1), the walk's
+    # state fresh for each launch
+    q = batches[2][2]
+    meas = measures["tfidf"]
+    r, m_ = engine._encode_queries(q)
+    qt = drb.and_tables(idx, aux, torch.from_numpy(r).to(dev),
+                        torch.from_numpy(m_).to(dev), meas,
+                        engine._idf_table(meas))
+    st0 = walk.init_state(qt, K)
+    holder = {}
+
+    def fresh():
+        holder["st"] = st0.clone()
+
+    def run(kb):
+        holder["st"] = walk.drb_walk(idx, aux, qt, holder["st"], meas, k=K,
+                                     kernel_backend=kb)
+    w_call = time_cuda(lambda: run("auto"), reps=20, warm=3, setup=fresh)
+    w_ms, _ = profile_device(lambda: (fresh(), run("auto")), 10,
+                             "drb_walk_kernel")
+    check(w_ms > 0, "the profiler recorded no device time for "
+          "drb_walk_kernel")
+    fresh()
+    run("auto")
+    got = holder["st"]
+    w_plain = time_cuda(lambda: run("ref"), reps=1, warm=0, setup=fresh)
+    check(all(torch.equal(a, b) for a, b in zip(got, holder["st"])),
+          "drb_walk's state differs from the plain walk's (and band iii)")
+    trips = int(got.it.max())
+    # what the walk needs to read (walk_bytes, from the plain walk's own
+    # calls), plus the row tables and state
+    with OpsRecorder("select", lambda bm, b, j: (bm, b, j), module=bytemap) \
+            as rec_sel, \
+            OpsRecorder("doc_of_pos", lambda i, p: (p,), module=wtbc) \
+            as rec_doc, OpsRecorder() as rec_cnt, \
+            OpsRecorder("bitmap_rank1_batch",
+                        lambda bv, pos, **kw: (pos,)) as rec_rank:
+        fresh()
+        run("ref")
+    Qw = qt.wl.shape[1]
+    check(len(rec_cnt.calls) == len(rec_rank.calls) >= trips,
+          "the plain walk made other calls than one count and one rank "
+          "per trip")
+    nb, ops = walk_bytes(idx, aux, qt, rec_sel.calls, rec_doc.calls,
+                         rec_cnt.calls, rec_rank.calls)
+    nb += B * (Qw * 20 + 2 * Qw * 4 + K * 8 + 12)   # tables in, state out
+    w_bound, w_by = bound_ms(nb, ops)
+    log(f"drb_walk (and band iii, tf-idf, B={B}): kernel {w_ms:.4f} ms on "
+        f"the device ({w_call:.4f} ms per wrapper call), plain walk "
+        f"{w_plain:.3f} ms, bound {w_bound:.6f} ms ({w_by}: {nb} bytes, "
+        f"{ops} compares); longest row {trips} trips: "
+        f"{1e3 * w_ms / max(trips, 1):.3f} us per trip; row trips "
+        f"{got.it.tolist()}")
+    # the profiler's own host cost inflates its wall time, so the idle share
+    # is also given against an unprofiled run of the same batch
+    for i in (0, 2):
+        for mname in measures:
+            def batch():
+                return engine.search(batches[i][2], k=K, mode="and",
+                                     strategy="drb", measure=mname)
+            busy, wall = profile_device(batch, 1)
+            plain_wall, _ = wall_ms(batch)
+            log(f"DRB {mname} (and, band {batches[i][1]}): device busy "
+                f"{busy:.3f} ms of {wall:.3f} ms wall, idle share "
+                f"{1 - busy / wall:.4f}; of {plain_wall:.3f} ms unprofiled, "
+                f"{1 - busy / plain_wall:.4f}")
+
     meta = {
         "bitmap_rank1": ("src/repro_torch/csrc/bitmap_rank.cu",
                          "src/repro/kernels/bitmap_rank.py:26",
@@ -1000,6 +1225,16 @@ def drb_phases(engine, cp, batches, kind) -> tuple[list[dict], int]:
                     "shapes": [{"shape": r[1], "ms": r[2], "wrapper_ms": r[3],
                                 "plain_ms": r[4], "bound_ms": r[5],
                                 "bound_by": r[6]} for r in mine]})
+    out.append({"name": "drb_walk", "route": "cuda",
+                "source": "src/repro_torch/csrc/drb_walk.cu",
+                "replaces": "src/repro/kernels/bitmap_rank.py:26",
+                "launches": drb_counts["drb_walk"], "max_abs_err": 0,
+                "ms": w_ms, "plain_ms": w_plain, "bound_ms": w_bound,
+                "bound_by": w_by, "library_ms": None,
+                "library_note": "no PyTorch call runs a DRB walk",
+                "wrapper_ms": w_call, "trips": trips,
+                "us_per_trip": 1e3 * w_ms / max(trips, 1),
+                "shape": f"and band iii, tf-idf, B={B}, Q={Qw}, k={K}, P=1"})
     del cands
     return out, k1_err
 

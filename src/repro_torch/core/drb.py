@@ -17,12 +17,12 @@ Because DRB scores fully materialized candidates, any additive-per-word
 measure works — tf-idf (paper) and BM25 (paper §5's noted extension).
 
 **How the port runs them.**  Both searches take a whole (B, Q) batch.  The
-conjunctive walk is a host loop over trips, every row at the full beam width
-P in each trip; rows that finished are masked, so their extra trips are
-exact no-ops and the host tests ``any(live)`` — a device sync — only every
-``_TRIPS_PER_SYNC`` trips.  Per trip: one ``wavelet_count`` launch for the
-B·(P·Q + Q) in-document and cursor counts, one ``bitmap_rank1`` launch for
-the 2·B·Q cursor ranks.  The bag-of-words search is loop-free: one
+conjunctive walk is one ``drb_walk`` launch on the card: every trip of every
+row runs inside the kernel, at the full beam width P per trip, with no host
+sync (``kernels/drb_walk.py``).  Its plain version, the CPU path, drives
+the trips from the host: per trip one count batch for the B·(P·Q + Q)
+in-document and cursor counts and one bitmap rank batch for the 2·B·Q
+cursor ranks.  The bag-of-words search is loop-free: one
 ``bitmap_rank1`` launch for the B·Q bitmap base ranks, then batched selects,
 locates and a scatter-add over every row at once, and one ``scored_topk``
 launch that scores every document of every row (its (n_docs, Q) per-word
@@ -41,14 +41,9 @@ from repro_torch.core.bitvec import BitVec
 from repro_torch.core.ranked import DRResult
 from repro_torch.core.scoring import BM25
 from repro_torch.core.wtbc import WTBCIndex
+from repro_torch.kernels import drb_walk as walk
 from repro_torch.kernels import ops
-
-INT32_MAX = H.INT32_MAX
-# host syncs of the conjunctive loop-exit test: one every this many trips
-# (a trip is a few hundred small launches, so the card drains between
-# trips anyway and a sync costs little; extra trips of finished rows cost
-# a whole trip each)
-_TRIPS_PER_SYNC = 4
+from repro_torch.kernels.drb_walk import word_rank1  # noqa: F401 (public)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,18 +113,6 @@ def space_report(aux: DRBAux) -> dict[str, int]:
 
 # word-relative bitmap ops ----------------------------------------------------
 
-def word_rank1(aux: DRBAux, w: torch.Tensor, i: torch.Tensor, *,
-               kernel_backend: str = "auto") -> torch.Tensor:
-    """Ones among the first ``i`` bits of word ``w``'s bitmap (= documents
-    fully passed), elementwise; both ranks in one ``bitmap_rank1`` launch."""
-    off = aux.bit_off[w.long()]
-    n = off.numel()
-    r = bitvec.rank1(aux.bv, torch.cat([(off + i).reshape(-1),
-                                        off.reshape(-1)]),
-                     kernel_backend=kernel_backend)
-    return (r[:n] - r[n:]).reshape(off.shape)
-
-
 def word_select1(aux: DRBAux, w: torch.Tensor, j: torch.Tensor, *,
                  kernel_backend: str = "auto") -> torch.Tensor:
     """Bit position (word-relative) of the ``j``-th 1 in ``w``'s bitmap."""
@@ -164,22 +147,22 @@ def _avg_dl(idx: WTBCIndex, measure, avg_dl):
     return torch.as_tensor(avg_dl, dtype=torch.float32, device=idx.device)
 
 
-def _take_k(scores, docs, k: int):
-    """The k best (score, doc) pairs of each row under (score desc, doc
-    asc); -inf / -1 past the candidates."""
-    B, n = scores.shape
-    if n < k:
-        scores = torch.cat([scores, scores.new_full((B, k - n), H.NEG_INF)], 1)
-        docs = torch.cat([docs, docs.new_full((B, k - n), INT32_MAX)], 1)
-    o = torch.sort(docs, dim=1, stable=True).indices
-    s, d = scores.gather(1, o), docs.gather(1, o)
-    o = torch.sort(s, dim=1, descending=True, stable=True).indices[:, :k]
-    return s.gather(1, o), d.gather(1, o)
-
-
 # ---------------------------------------------------------------------------
 # conjunctive (AND) — the paper's triplet walk
 # ---------------------------------------------------------------------------
+
+def and_tables(idx: WTBCIndex, aux: DRBAux, words: torch.Tensor,
+               wmask: torch.Tensor, measure, idf: torch.Tensor | None = None,
+               avg_dl=None) -> walk.DRBQuery:
+    """The (B, Q) tables the conjunctive walk runs on (``idf`` / ``avg_dl``
+    as for :func:`topk_drb_and`)."""
+    wmask, wl, valid, idf_w = _query_tables(idx, aux, words, wmask, measure,
+                                            idf)
+    df_w = idx.df[wl]
+    return walk.DRBQuery(wl, valid, idf_w, df_w, valid.any(1),
+                         torch.any(wmask & (df_w == 0), 1),
+                         _avg_dl(idx, measure, avg_dl))
+
 
 def topk_drb_and(idx: WTBCIndex, aux: DRBAux, words: torch.Tensor,
                  wmask: torch.Tensor, measure, *, k: int,
@@ -204,96 +187,17 @@ def topk_drb_and(idx: WTBCIndex, aux: DRBAux, words: torch.Tensor,
     certification is all-or-nothing: a completed walk is exact (every slot
     certified, bound -inf), a budget-stopped one certifies nothing (bound
     +inf).  Every leaf is the reference's per-row ``topk_drb_and``."""
-    B, Q = words.shape
-    P = int(beam_width)
-    dev = words.device
-    wmask, wl, valid, idf_w = _query_tables(idx, aux, words, wmask, measure,
-                                            idf)
-    avg = _avg_dl(idx, measure, avg_dl)
-    df_w = idx.df[wl]
-    absent = torch.any(wmask & (df_w == 0), 1)
-    any_valid = valid.any(1)
-    row = torch.arange(B, device=dev)
-    lanes = torch.arange(P, dtype=torch.int32, device=dev)
-
-    p = torch.zeros((B, Q), dtype=torch.int32, device=dev)
-    nd = torch.where(valid, df_w, INT32_MAX)
-    top_s = torch.full((B, k), H.NEG_INF, dtype=torch.float32, device=dev)
-    top_d = torch.full((B, k), -1, dtype=torch.int32, device=dev)
-    zb = torch.zeros(B, dtype=torch.int32, device=dev)
-    it, cands, padded = zb, zb.clone(), zb.clone()
-
-    def has_work(nd_):
-        return (nd_.amin(1) > 0) & any_valid & ~absent
-
-    def live_rows(nd_, it_, cands_):
-        ok = has_work(nd_) & (it_ < idx.n_docs + 1)
-        if max_pops is not None:
-            ok = ok & (cands_ < max_pops)
-        return ok
-
-    def trip(p, nd, top_s, top_d, it, cands, padded):
-        live = live_rows(nd, it, cands)
-        qstar = torch.where(valid, nd, INT32_MAX).argmin(1)
-        wstar = wl[row, qstar]
-        occ_star = idx.occ[wstar]
-        # candidates: the next P occurrences of the rarest word (their
-        # documents are non-decreasing; the first is always a fresh one
-        # because cursors sit on document boundaries)
-        js = p[row, qstar][:, None] + 1 + lanes                     # (B, P)
-        valid_j = js <= occ_star[:, None]
-        jc = torch.minimum(js, occ_star.clamp(min=1)[:, None])
-        pos_j = wtbc.locate(idx, wstar[:, None].expand(B, P), jc)
-        d_j = wtbc.doc_of_pos(idx, pos_j)
-        prev = torch.cat([torch.full((B, 1), -1, dtype=torch.int32,
-                                     device=dev), d_j[:, :-1]], 1)
-        new_j = valid_j & (d_j != prev)
-        lo_j, hi_j = wtbc.segment_extent(idx, d_j, d_j + 1)
-        d_last = torch.where(valid_j, d_j, -1).amax(1)
-        hi_last = wtbc.segment_extent(idx, d_last, d_last + 1)[1]
-        # one batch: P×Q in-document tfs + Q prefix counts at the last
-        # candidate's end (the cursor-skip counts)
-        cnt = wtbc.count_range_batch(
-            idx,
-            torch.cat([wl[:, None, :].expand(B, P, Q).reshape(B, P * Q), wl],
-                      1).reshape(-1),
-            torch.cat([lo_j[:, :, None].expand(B, P, Q).reshape(B, P * Q),
-                       torch.zeros((B, Q), dtype=torch.int32, device=dev)],
-                      1).reshape(-1),
-            torch.cat([hi_j[:, :, None].expand(B, P, Q).reshape(B, P * Q),
-                       hi_last[:, None].expand(B, Q)], 1).reshape(-1),
-            kernel_backend=kernel_backend).reshape(B, P * Q + Q)
-        tf = cnt[:, :P * Q].reshape(B, P, Q) * valid[:, None, :]
-        cnt_last = cnt[:, P * Q:]
-        present = new_j & torch.all((tf > 0) | ~valid[:, None, :], 2) \
-            & any_valid[:, None] & live[:, None]
-        dl = idx.doc_len[d_j.clamp(0, idx.n_docs - 1).long()]
-        score = measure.score(tf, idf_w[:, None, :], dl, avg)        # (B, P)
-        top_s, top_d = _take_k(
-            torch.cat([top_s, torch.where(present, score, H.NEG_INF)], 1),
-            torch.cat([top_d, torch.where(present, d_j, INT32_MAX)], 1), k)
-        # advance all cursors past the last candidate (the paper's triplet
-        # recomputation)
-        passed = word_rank1(aux, wl, cnt_last, kernel_backend=kernel_backend)
-        lv = live[:, None]
-        p = torch.where(lv & valid, cnt_last, p)
-        nd = torch.where(lv, torch.where(valid, df_w - passed, INT32_MAX), nd)
-        li = live.to(torch.int32)
-        return (p, nd, top_s, top_d, it + li,
-                cands + li * new_j.sum(1, dtype=torch.int32),
-                padded + li * (~valid_j).sum(1, dtype=torch.int32))
-
-    st = (p, nd, top_s, top_d, it, cands, padded)
-    while bool(live_rows(st[1], st[4], st[5]).any()):
-        for _ in range(_TRIPS_PER_SYNC):
-            st = trip(*st)
-    p, nd, top_s, top_d, it, cands, padded = st
-    found = top_s > H.NEG_INF
-    complete = ~has_work(nd)       # stopped because done, not budgeted
-    return DRResult(torch.where(found, top_d, -1), top_s,
-                    found.sum(1, dtype=torch.int32), it, cands,
-                    torch.zeros(B, dtype=torch.bool, device=dev), padded,
-                    certified=found & complete[:, None],
+    qt = and_tables(idx, aux, words, wmask, measure, idf, avg_dl)
+    st = walk.drb_walk(idx, aux, qt, walk.init_state(qt, k), measure, k=k,
+                       beam_width=beam_width, max_pops=max_pops,
+                       kernel_backend=kernel_backend)
+    B = words.shape[0]
+    found = st.top_s > H.NEG_INF
+    complete = ~walk.has_work(qt, st.nd)   # stopped because done, not budgeted
+    return DRResult(torch.where(found, st.top_d, -1), st.top_s,
+                    found.sum(1, dtype=torch.int32), st.it, st.cands,
+                    torch.zeros(B, dtype=torch.bool, device=words.device),
+                    st.padded, certified=found & complete[:, None],
                     bound=torch.where(complete, H.NEG_INF,
                                       float("inf")).to(torch.float32))
 

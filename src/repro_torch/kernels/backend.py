@@ -155,8 +155,20 @@ SCORED_TOPK = CudaKernel(
     # cands, query, row_ok, B, C, d, dtype, k, tile, vec, part_s, part_i,
     # stream
     (_P, _P, _P) + (_I,) * 7 + (_P, _P, _P))
+_F = ctypes.c_float
+DRB_WALK = CudaKernel(
+    "drb_walk", "drb_walk.cu",
+    _LEVEL_ARGS + _TABLE_ARGS
+    + (_P, _P, _P, _I, _I)            # sep_pos, doc_len, occ, n, n_docs
+    + (_P, _P, _I, _I, _P)            # bitmaps: words, counts, n_blocks,
+                                      # n_bits, bit_off
+    + (_P, _P, _P, _P, _P, _I)        # words, valid, idf_w, df_w, row_ok, Q
+    + (_I, _P, _F, _F, _F, _F)        # bm25, avg_dl, 1 - b, b, k1 + 1, k1
+    + (_I, _I, _I)                    # P, k, max_pops
+    + (_P,) * 7                       # p, nd, top_s, top_d, it, cands, padded
+    + (_I, _P, _I, _P))               # ws_bytes, scratch, B, stream
 KERNELS = (WAVELET_COUNT, BEAM_LOOP, BITMAP_RANK1, BYTE_RANK, SEGMENT_TF,
-           SCORED_TOPK)
+           SCORED_TOPK, DRB_WALK)
 
 
 def launch_counts() -> dict[str, int]:
