@@ -9,7 +9,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 Phases (any failure exits non-zero; no phase is caught and ignored, and
 nothing falls back to the CPU):
 
-1. build  — compile the seven CUDA kernels from ``src/repro_torch/csrc`` (one
+1. build  — compile the nine CUDA kernels from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all at once); print the card's name and power limit.
 2. data   — a quarter of the paper's ALL collection (718,691-word vocabulary,
    Zipf 1.2, mean 633 tokens per document): 86,445 documents, about 55 M
@@ -40,30 +40,44 @@ nothing falls back to the CPU):
    a batch whose rows each take a band-ii word and two more frequent words
    of one document (``doc_batch``: every row has hits, so the walk scores
    and merges candidates) under tf-idf and BM25 at P = 1 and 16.
+   ``drb_or`` (the whole DRB ``or`` query: a memset and three kernels)
+   against its plain version, every leaf bitwise: the words of the four
+   batches and of the ``doc_batch`` under tf-idf and BM25, and edge
+   batches — k = 1; a repeated word, a stopword, the padded Q column and a
+   row with no valid word; k past the collection on a 2,000-document
+   engine.  ``wtbc_decode`` (a whole decode in one launch) against its
+   plain version, bitwise: random positions, 0 and n - 1, positions whose
+   descent ranks at a tile edge of each level, and every snippet position
+   of phase 9.
    K3 ``bitmap_rank1``, K5 ``byte_rank``, K4 ``segment_tf`` and K6
    ``scored_topk`` against their plain versions on the card, bitwise:
-   random inputs with their edges, plus every call that real DRB searches
-   and a snippet decode made, recorded in phase 7 (the plain ``and`` walk
-   called through ``drb.topk_drb_and(..., kernel_backend="ref")``, since
-   the engine routes ``and`` to ``drb_walk``; ``or`` under tf-idf and
-   BM25) — K1 at each plain ``and`` trip's triples, K3 at its cursor
-   ranks, K6 at each DRB or batch with its mask; K4 over every document
-   bound; K6 at C = 10^6, d = 128.
+   random inputs with their edges, plus every call that the plain DRB
+   searches and a plain snippet decode made, recorded in phase 7 (the
+   plain ``and`` walk and ``or`` query through ``kernel_backend="ref"``,
+   since the engine routes them to ``drb_walk`` and ``drb_or``; ``or``
+   under tf-idf and BM25) — K1 at each plain ``and`` trip's triples, K3 at
+   its cursor ranks and the ``or`` base ranks, K6 at each plain ``or``
+   batch with its mask, K5 at each level of the plain decode; K4 over
+   every document bound; K6 at C = 10^6, d = 128.
 9. the DRB path — launch counters reset, then ``search(strategy="drb")``
    under tf-idf and BM25 on the four batches of phase 2 and the ``and``
    batch of one document's words, and ``snippets`` of
    every hit, as a user calls them: DRB tf-idf equals the mega core, BM25
    equals a brute-force BM25 computed on the host in numpy from the
    corpus's tokens (two queries per batch), snippets equal the corpus's
-   tokens; each ``and`` batch was one ``drb_walk`` launch with no K1 or K3
-   launch, and K3, K5 and K6 were launched.
+   tokens; each ``and`` batch was one ``drb_walk`` launch and each ``or``
+   batch one ``drb_or`` launch with no other kernel, and each ``snippets``
+   call one ``wtbc_decode`` launch with no ``byte_rank`` launch.
 10. timings of the new kernels (device time, wrapper time, plain time,
    bound, K6's library time; ``drb_walk`` per ``and`` iii batch and per
    trip of its longest row, its bound from what the plain walk's selects
    (from the nearer end of the block), documents, counts and ranks of valid
-   words read), DRB ms per batch, and the device's
-   idle share on one DRB ``or`` batch and on the ``and`` ii and iii
-   batches.
+   words read; ``drb_or`` per ``or`` ii and iii batch, its bound from what
+   the live lanes' bitmap blocks, selects (from the nearer end of the
+   block) and documents need plus the tf table's zeroing and scan;
+   ``wtbc_decode`` per snippet decode), DRB ms per batch, ``snippets`` ms
+   per call, and the device's idle share on the DRB ``or`` ii batch (over
+   ten searches) and on the ``and`` ii and iii batches.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -372,6 +386,150 @@ def walk_bytes(idx, aux, qt, sel_calls, doc_calls, cnt_calls, rank_calls
     blocks = torch.unique(torch.clamp(rank_pos.clamp(0, aux.bv.n_bits) // 1024,
                                       max=aux.bv.counts.numel() - 2))
     return nb + dn + (128 + 4) * blocks.numel(), ops + dops
+
+
+def locate_bytes(idx, w, j) -> tuple[int, int, torch.Tensor]:
+    """(bytes, byte compares, root positions) of the locates of the
+    ``j``-th (1-based) occurrences of words ``w``, as the device locate runs
+    them: from each word's leaf level up, one select per level the word
+    reaches, each reading its found byte and the bytes before or after it in
+    its block, whichever are fewer, with the counter cell at that end
+    (``near_bytes(select=True)``), distinct selects once."""
+    import torch
+    from repro_torch.core import bytemap
+    w = w.long()
+    wlen = idx.cw_len[w]
+    pos = torch.zeros_like(j)
+    nb = ops = 0
+    for L in range(len(idx.levels) - 1, -1, -1):
+        m = wlen > L
+        if not bool(m.any()):
+            continue
+        lv = idx.levels[L]
+        base = idx.base_rank[w, L]
+        occ_idx = torch.where(wlen == L + 1, base + j, base + pos + 1)[m]
+        byte = idx.cw[w, L][m].long()
+        bj = torch.unique(torch.stack([byte, occ_idx.long()], 1), dim=0)
+        sb, sops = near_bytes(lv, bj[:, 0], bytemap.select(
+            lv, bj[:, 0], bj[:, 1]), select=True)
+        nb += sb
+        ops += sops
+        p = bytemap.select(lv, byte, occ_idx) - idx.node_off[w, L][m]
+        pos[m] = p.to(pos.dtype)
+    return nb, ops, pos
+
+
+def or_bytes(idx, aux, words, wmask, cap: int, k: int, bm25: bool
+             ) -> tuple[int, int, int]:
+    """(bytes, byte compares, live lanes) the DRB ``or`` query needs for a
+    (B, Q) batch: per (row, word) its tables (the word, its mask, bitmap
+    flag, df, bitmap offsets, idf and codeword path); per live (row, word,
+    document) the bitmap blocks its two selects find (128 bytes and a
+    counter each, distinct blocks once), its locate (``locate_bytes``) and
+    its document's two separators (distinct documents once), and its tf
+    cell; the tf table zeroed and scanned (B * N * Q * 4 bytes each way),
+    the documents' lengths under BM25, and the result."""
+    import torch
+    from repro_torch.core import bitvec, wtbc
+    B, Q = words.shape
+    N = idx.n_docs
+    wl = words.long()
+    valid = wmask & aux.has_bm[wl]
+    df = torch.where(valid, idx.df[wl], 0).reshape(-1)
+    live = df.clamp(max=cap)
+    lanes = int(live.sum())
+    entry = torch.repeat_interleave(torch.arange(B * Q, device=wl.device),
+                                    live)
+    j = torch.arange(lanes, device=wl.device) - torch.repeat_interleave(
+        torch.cumsum(live, 0) - live, live)
+    w = wl.reshape(-1)[entry]
+    off = aux.bit_off[w]
+    base = bitvec.rank1(aux.bv, off, kernel_backend="ref")
+    g = (base + 1 + j).to(torch.int32)
+    sel = bitvec.select1(aux.bv, g)
+    has_next = j + 1 < df[entry]
+    nxt = bitvec.select1(aux.bv, g[has_next] + 1)
+    blocks = torch.unique(torch.cat([sel, nxt]).long() // 1024)
+    nb = (128 + 4) * blocks.numel()
+    ln, lops, pos = locate_bytes(idx, w, (sel - off + 1).to(torch.int32))
+    docs = torch.unique(wtbc.doc_of_pos(idx, pos))
+    nb += ln + 8 * docs.numel() + 4 * lanes
+    nb += B * Q * (4 + 1 + 1 + 4 + 8 + 4 + 31)
+    nb += 2 * B * N * Q * 4 + (4 * N if bm25 else 0)
+    nb += B * k * 9 + B * 17
+    return nb, lops, lanes
+
+
+def decode_bytes(idx, pos) -> tuple[int, int]:
+    """(bytes, byte compares) a decode of root positions ``pos`` needs:
+    per position and level until its word ends, the node offset and the
+    byte read (distinct ones once), and for a continuer byte its ranks at
+    the node's start and at the position, each from the nearer end of its
+    tile (``near_bytes``); the positions in and the ranks out."""
+    import torch
+    from repro_torch.core import bytemap
+    s, c = idx.s, idx.c
+    p = pos.reshape(-1).to(torch.int32)
+    prefix = torch.zeros_like(p)
+    done = torch.zeros(p.shape, dtype=torch.bool, device=p.device)
+    nb, ops = 8 * p.numel(), 0
+    for L, lv in enumerate(idx.levels):
+        if bool(done.all()):
+            break
+        live = ~done
+        off = idx.offsets[L][prefix.long()]
+        at = (off + p).clamp(0, max(lv.length - 1, 0))
+        nb += 4 * torch.unique(prefix[live]).numel() \
+            + torch.unique(at[live]).numel()
+        b = bytemap.access(lv, off + p).to(torch.int32)
+        stop = b < s
+        cont = live & ~stop
+        if bool(cont.any()):
+            rb, rops = near_bytes(lv, torch.cat([b[cont], b[cont]]),
+                                  torch.cat([off[cont] + p[cont],
+                                             off[cont]]))
+            nb += rb
+            ops += rops
+        r = bytemap.rank(lv, torch.cat([b, b]), torch.cat([off + p, off]),
+                         kernel_backend="ref")
+        n = p.numel()
+        p = torch.where(stop, p, r[:n] - r[n:])
+        prefix = torch.where(stop, prefix, prefix * c + (b - s))
+        done = done | stop
+    return nb, ops
+
+
+def decode_edge_positions(idx, rng, per_level: int = 2048):
+    """Root positions (on the card) whose decode reads a tile edge, or one
+    byte either side of it, at each level: a level-L position is mapped up
+    to the root through its node (the node key's last continuer byte and
+    the entry's index in its node: the parent's (index + 1)-th occurrence
+    of that byte after the parent node's start), with 0 and n - 1."""
+    import torch
+    from repro_torch.core import bytemap
+    dev = idx.device
+    s, c = idx.s, idx.c
+    out = [torch.tensor([0, idx.n - 1], dtype=torch.int32, device=dev)]
+    for L, lv in enumerate(idx.levels):
+        if lv.length == 0:
+            continue
+        e = np.arange(0, lv.length + 1, lv.block)
+        q = np.unique(np.clip(np.concatenate([e - 1, e, e + 1]), 0,
+                              lv.length - 1))
+        q = torch.from_numpy(rng.choice(q, min(per_level, len(q)),
+                                        replace=False)).to(dev).long()
+        for up in range(L, 0, -1):          # level `up` -> level up - 1
+            offs = idx.offsets[up]
+            key = torch.searchsorted(offs, q, right=True) - 1
+            parent = key // c
+            byte = (s + key % c).to(torch.int32)
+            plv = idx.levels[up - 1]
+            start = idx.offsets[up - 1][parent]
+            before = bytemap.rank(plv, byte, start, kernel_backend="ref")
+            q = bytemap.select(plv, byte, before + (q - offs[key]).to(
+                torch.int32) + 1).long()
+        out.append(q.to(torch.int32))
+    return torch.unique(torch.cat(out)).clamp(0, idx.n - 1)
 
 
 def doc_batch(cp, engine, rng, band, n_rows: int, n_words: int = 3
@@ -767,6 +925,7 @@ def drb_phases(engine, cp, batches, kind) -> tuple[list[dict], int]:
     from repro_torch.core import bytemap, drb, wtbc
     from repro_torch.kernels import (backend, bitmap_rank, byte_rank,
                                      segment_tf, topk_score)
+    from repro_torch.engine import EngineConfig, SearchEngine
     from repro_torch.kernels import drb_walk as walk
     from repro_torch.text import corpus as tcorpus
     dev = engine.device
@@ -800,11 +959,37 @@ def drb_phases(engine, cp, batches, kind) -> tuple[list[dict], int]:
             meas, k=K, idf=engine._idf_table(meas),
             avg_dl=engine._avg_doc_len(), kernel_backend=kb, **kw)
 
-    # the inputs every kernel gets from real DRB searches (the plain ``and``
-    # walk, whose trips make the K1 and K3 calls the kernel now makes inside
-    # itself; ``or`` under tf-idf and BM25) and from a snippet decode.  These
-    # calls launch the kernels; phase 9 resets the counters before the
-    # measured run.
+    def or_run(wt, mt, mname, kb, *, k=K, cap=None, eng=engine):
+        """DRB ``or`` of (B, Q) ranks and mask on the card through its
+        core, as the engine's executor calls it (``cap`` the engine's own
+        gather width by default); ``kb="ref"`` runs the plain version."""
+        meas = measures[mname]
+        if cap is None:
+            cap = eng._df_cap(wt.cpu().numpy(), mt.cpu().numpy())
+        return drb.topk_drb_or(
+            eng.idx, eng.aux, wt, mt, meas, k=k, max_df_cap=cap,
+            idf=eng._idf_table(meas), avg_dl=eng._avg_doc_len(),
+            kernel_backend=kb)
+
+    def encode(q, eng=engine):
+        r, m_ = eng._encode_queries(q)
+        return torch.from_numpy(r).to(dev), torch.from_numpy(m_).to(dev)
+
+    def snippet_pos(res, length=8):
+        """The root positions ``snippets`` decodes for a result."""
+        d = torch.tensor([d for b in range(len(res)) for d, _ in
+                          res.hits(b)], dtype=torch.int32, device=dev)
+        return (wtbc.doc_start(idx, d)[:, None] + torch.arange(
+            length, dtype=torch.int32, device=dev)).clamp(max=idx.n - 1)
+
+    # the inputs every kernel gets from the plain DRB searches (the plain
+    # ``and`` walk, whose trips make the K1 and K3 calls drb_walk makes
+    # inside itself; the plain ``or`` query under tf-idf and BM25, whose
+    # base ranks and top-k drb_or makes inside itself) and from a plain
+    # snippet decode (one K5 call per level, which wtbc_decode makes
+    # inside itself).  Phase 9 resets the counters before the measured run.
+    or_res = engine.search(batches[1][2], k=K, mode="or", strategy="drb",
+                           measure="bm25")
     with OpsRecorder("bitmap_rank1_batch", lambda bv, pos, **kw: (pos,)) \
             as rec_k3, \
             OpsRecorder("rank_batch", lambda bm, b, p, **kw: (bm, b, p)) \
@@ -812,13 +997,12 @@ def drb_phases(engine, cp, batches, kind) -> tuple[list[dict], int]:
             OpsRecorder("scored_topk", lambda c, q, **kw: (
                 c, q, kw["valid"], kw["k"], kw["tile"])) as rec_k6:
         and_walk(batches[0][2], "tfidf", "ref")
-        for mname in ("tfidf", "bm25"):
-            res = engine.search(batches[1][2], k=K, mode="or",
-                                strategy="drb", measure=mname)
-        engine.snippets(res, length=8)
+        for mname in measures:
+            or_run(*encode(batches[1][2]), mname, "ref")
+        wtbc.decode_at(idx, snippet_pos(or_res), kernel_backend="ref")
     k5_snip = [c for c in rec_k5.calls if c[1].numel()]
-    log(f"recorded from DRB searches (the plain and walk, or): "
-        f"{len(rec_k1.calls)} wavelet_count, "
+    log(f"recorded from the plain DRB searches (and walk, or query) and a "
+        f"plain snippet decode: {len(rec_k1.calls)} wavelet_count, "
         f"{len(rec_k3.calls)} bitmap_rank1, {len(rec_k5.calls)} byte_rank, "
         f"{len(rec_k6.calls)} scored_topk calls")
 
@@ -884,6 +1068,78 @@ def drb_phases(engine, cp, batches, kind) -> tuple[list[dict], int]:
     log(f"drb_walk == plain walk on rows of one document's words (tf-idf/"
         f"BM25 x P = 1/16; {walk_trips} row trips, {merged} hits kept, "
         f"n_found {got.n_found.tolist()}): every leaf bitwise")
+
+    # drb_or (the whole DRB or query) against its plain version, every leaf
+    or_names = ("docs", "scores", "n_found", "iters", "pops", "overflowed",
+                "certified", "bound")
+    or_cases = [(mname, f"words of the {m} band {b} batch", *encode(q), K,
+                 None, engine) for mname in measures for m, b, q in batches]
+    # edge rows on the or ii batch (Q = 3, bucket 4: column 3 is padding):
+    # row 0 repeats its first word in the padded column, row 1 takes a
+    # stopword, row 2 has no valid word
+    wt, mt = encode(batches[1][2])
+    wt, mt = wt.clone(), mt.clone()
+    has_bm = aux.has_bm
+    stop = torch.nonzero(~has_bm & (idx.df > 0)).reshape(-1)
+    stop = int(stop[stop != 0][0])
+    wt[0, 3], mt[0, 3] = wt[0, 0], True
+    wt[1, 0] = stop
+    mt[2] = False
+    edge_cap = engine._df_cap(wt.cpu().numpy(),
+                              (mt & has_bm[wt.long()]).cpu().numpy())
+    wt3, mt3 = encode(batches[3][2])
+    # k past the collection: an engine over the first 2,000 documents
+    small_cp = type(cp)(doc_tokens=cp.doc_tokens[:2000],
+                        vocab_size=cp.vocab_size, seed=cp.seed)
+    small = SearchEngine.build(small_cp, EngineConfig(
+        block=idx.levels[0].block), device=dev)
+    srng = np.random.default_rng(SEED + 7)
+    small_q = [[int(x) for x in srng.choice(np.unique(
+        small_cp.doc_tokens[d]), 3, replace=False)]
+        for d in srng.integers(0, small_cp.n_docs, B)]
+    or_cases += [(mname, "edge rows (repeated word, stopword, padded "
+                  "column, no valid word)", wt, mt, K, edge_cap, engine)
+                 for mname in measures] \
+        + [(mname, "k = 1 on the or iii batch", wt3, mt3, 1, None, engine)
+           for mname in measures] \
+        + [(mname, f"k = n_docs + 5 on a {small.n_docs}-document engine",
+            *encode(small_q, small), small.n_docs + 5, None, small)
+           for mname in measures]
+    or_found = 0
+    for mname, what, wt_, mt_, k_, cap_, eng_ in or_cases:
+        got = or_run(wt_, mt_, mname, "auto", k=k_, cap=cap_, eng=eng_)
+        want = or_run(wt_, mt_, mname, "ref", k=k_, cap=cap_, eng=eng_)
+        torch.cuda.synchronize()
+        bad = leaves_equal(got, want, or_names)
+        check(not bad, f"drb_or differs from its plain version ({mname}, "
+              f"{what}): {bad}")
+        or_found += int(got.n_found.sum())
+    check(int(got.n_found.min()) > 0 and bool(
+        (got.docs[:, small.n_docs:] == -1).all()), "the k past the "
+        f"collection: n_found {got.n_found.tolist()}, padding not -1")
+    log(f"drb_or == plain on {len(or_cases)} batches (five batches' words "
+        f"x tf-idf/BM25; edge rows, k = 1, k = n_docs + 5 x tf-idf/BM25; "
+        f"{or_found} hits): every leaf bitwise")
+
+    # wtbc_decode (a whole decode in one launch) against its plain version
+    drng = np.random.default_rng(SEED + 9)
+    dec_sets = [("random", torch.from_numpy(drng.integers(
+        0, idx.n, 4096).astype(np.int32)).to(dev)),
+        ("tile edges of each level, 0 and n - 1",
+         decode_edge_positions(idx, drng))]
+    for i in (1, 3):
+        res = engine.search(batches[i][2], k=K, mode="or", strategy="drb",
+                            measure="bm25")
+        dec_sets.append((f"snippets of the or {batches[i][1]} BM25 batch",
+                         snippet_pos(res)))
+    for name, pos in dec_sets:
+        got = wtbc.decode_at(idx, pos)
+        want = wtbc.decode_at(idx, pos, kernel_backend="ref")
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"wtbc_decode differs from its plain "
+              f"version on {name} positions")
+    log(f"wtbc_decode == plain on {len(dec_sets)} position sets "
+        f"({sum(p.numel() for _, p in dec_sets)} positions): bitwise")
 
     # K1 at the triples of real DRB and trips: B·(P·Q + Q) per trip
     k1_err = 0
@@ -1001,21 +1257,27 @@ def drb_phases(engine, cp, batches, kind) -> tuple[list[dict], int]:
             per_batch[key] = {k_: after[k_] - before[k_] for k_ in after}
             log(f"DRB {key}: {ms:.2f} ms per batch of {B}; n_found "
                 f"{res.n_found.tolist()}; trips {res.work.tolist()}")
-    snips = {}
+    snips, snip_calls = {}, []
     for i in (1, 3):
         res = drb_res[("bm25", i)]
+        before = backend.launch_counts()
         snips[i] = (res, engine.snippets(res, length=8))
+        after = backend.launch_counts()
+        snip_calls.append({k_: after[k_] - before[k_] for k_ in after})
     drb_counts = backend.launch_counts()
     log("DRB path launches: " + json.dumps(drb_counts))
-    for name in ("drb_walk", "bitmap_rank1", "byte_rank", "scored_topk"):
+    for name in ("drb_walk", "drb_or", "wtbc_decode"):
         check(drb_counts[name] > 0, f"{name} never launched on the DRB path")
     for key, c in per_batch.items():
-        if " and " in key:
-            check(c["drb_walk"] == 1 and c["wavelet_count"] == 0
-                  and c["bitmap_rank1"] == 0, f"DRB {key} is not one "
-                  f"drb_walk launch: {c}")
-    log("DRB and: one drb_walk launch per batch, no wavelet_count or "
-        "bitmap_rank1 launch")
+        one = "drb_walk" if " and " in key else "drb_or"
+        check(c == {k_: int(k_ == one) for k_ in c}, f"DRB {key} is not one "
+              f"{one} launch: {c}")
+    for c in snip_calls:
+        check(c == {k_: int(k_ == "wtbc_decode") for k_ in c},
+              f"snippets is not one wtbc_decode launch: {c}")
+    log("DRB and: one drb_walk launch per batch; DRB or: one drb_or launch "
+        "per batch; snippets: one wtbc_decode launch per call; no other "
+        "kernel (K1, K3, K5, K6)")
 
     for i, (mode, band, q) in enumerate(batches):
         res, ref_ = drb_res[("tfidf", i)], mega[i]
@@ -1125,12 +1387,20 @@ def drb_phases(engine, cp, batches, kind) -> tuple[list[dict], int]:
             f"{bms:.6f} ms ({by})")
     log(f"K6 library torch.topk(torch.mv(cands, q), {K}): {lib_ms:.6f} ms")
     log("DRB launches per batch: " + json.dumps(per_batch))
+    # the or batches' device work is a tenth of a millisecond, so their
+    # idle share is read over ten searches, against the profiled and an
+    # unprofiled wall
     q = batches[1][2]
     for mname in measures:
-        busy, wall = profile_device(lambda: engine.search(
-            q, k=K, mode="or", strategy="drb", measure=mname), 1)
-        log(f"DRB {mname} (or, band ii): device busy {busy:.3f} ms of "
-            f"{wall:.3f} ms wall, idle share {1 - busy / wall:.4f}")
+        def search():
+            return engine.search(q, k=K, mode="or", strategy="drb",
+                                 measure=mname)
+        busy, wall = profile_device(search, 10)
+        plain_wall = sum(wall_ms(search)[0] for _ in range(10)) / 10
+        log(f"DRB {mname} (or, band ii): device busy {busy:.4f} ms of "
+            f"{wall:.3f} ms wall per search, idle share "
+            f"{1 - busy / wall:.4f}; of {plain_wall:.3f} ms unprofiled, "
+            f"{1 - busy / plain_wall:.4f}")
 
     # drb_walk: one DRB and batch (band iii, tf-idf, P = 1), the walk's
     # state fresh for each launch
@@ -1199,6 +1469,61 @@ def drb_phases(engine, cp, batches, kind) -> tuple[list[dict], int]:
                 f"{1 - busy / wall:.4f}; of {plain_wall:.3f} ms unprofiled, "
                 f"{1 - busy / plain_wall:.4f}")
 
+    # drb_or: one DRB or batch per call (ii and iii, tf-idf and BM25); its
+    # device time is the memset's and the three kernels' (the call makes
+    # no other device work: the words are on the card already)
+    or_rows = []
+    for i in (1, 3):
+        wt, mt = encode(batches[i][2])
+        cap = engine._df_cap(wt.cpu().numpy(), mt.cpu().numpy())
+        for mname in measures:
+            def one(kb="auto"):
+                return or_run(wt, mt, mname, kb, cap=cap)
+            call_ms = time_cuda(one, reps=50, warm=5)
+            kms, _ = profile_device(one, 20)
+            pms = time_cuda(lambda: one("ref"), reps=3, warm=1)
+            nb, ops, lanes = or_bytes(idx, aux, wt, mt, cap, K,
+                                      mname == "bm25")
+            bms, by = bound_ms(nb, ops)
+            parts = {name: profile_device(one, 20, name)[0] for name in
+                     ("Memset", "drb_or_prep", "drb_or_gather",
+                      "drb_or_score")}
+            log(f"drb_or (or band {batches[i][1]}, {mname}) device ms by "
+                f"part: " + ", ".join(f"{k_} {v:.6f}"
+                                      for k_, v in parts.items()))
+            or_rows.append({"shape": f"or {batches[i][1]} {mname}, B={B}, "
+                            f"Q={wt.shape[1]}, k={K}, {lanes} live lanes",
+                            "ms": kms, "wrapper_ms": call_ms, "plain_ms": pms,
+                            "bound_ms": bms, "bound_by": by,
+                            "parts_ms": parts})
+            log(f"drb_or (or band {batches[i][1]}, {mname}, B={B}, "
+                f"{lanes} live lanes): memset + kernels {kms:.6f} ms on the "
+                f"device ({call_ms:.4f} ms per wrapper call), plain "
+                f"{pms:.3f} ms, bound {bms:.6f} ms ({by}: {nb} bytes, "
+                f"{ops} compares)")
+    # snippets as a user calls them, and wtbc_decode at their positions
+    snip_ms = {}
+    for i, (res, _) in snips.items():
+        snip_ms[batches[i][1]] = [wall_ms(lambda: engine.snippets(
+            res, length=8))[0] for _ in range(5)]
+        log(f"snippets(length=8) of the or {batches[i][1]} BM25 batch "
+            f"({int(res.n_found.sum())} hits): ms per call " + ", ".join(
+                f"{x:.3f}" for x in snip_ms[batches[i][1]]))
+    pos = snippet_pos(snips[3][0])
+    d_call = time_cuda(lambda: wtbc.decode_at(idx, pos), reps=200, warm=20)
+    d_ms, _ = profile_device(lambda: wtbc.decode_at(idx, pos), 100,
+                             "wtbc_decode_kernel")
+    check(d_ms > 0, "the profiler recorded no device time for "
+          "wtbc_decode_kernel")
+    d_plain = time_cuda(lambda: wtbc.decode_at(idx, pos, kernel_backend="ref"),
+                        reps=20, warm=3)
+    nb, ops = decode_bytes(idx, pos)
+    d_bound, d_by = bound_ms(nb, ops)
+    log(f"wtbc_decode (M={pos.numel()}, the or iii BM25 batch's snippets): "
+        f"kernel {d_ms:.6f} ms on the device ({d_call:.4f} ms per wrapper "
+        f"call), plain {d_plain:.4f} ms, bound {d_bound:.6f} ms ({d_by}: "
+        f"{nb} bytes, {ops} compares)")
+
     meta = {
         "bitmap_rank1": ("src/repro_torch/csrc/bitmap_rank.cu",
                          "src/repro/kernels/bitmap_rank.py:26",
@@ -1235,6 +1560,26 @@ def drb_phases(engine, cp, batches, kind) -> tuple[list[dict], int]:
                 "wrapper_ms": w_call, "trips": trips,
                 "us_per_trip": 1e3 * w_ms / max(trips, 1),
                 "shape": f"and band iii, tf-idf, B={B}, Q={Qw}, k={K}, P=1"})
+    main_or = or_rows[-1]                  # or iii BM25: the default path
+    out.append({"name": "drb_or", "route": "cuda",
+                "source": "src/repro_torch/csrc/drb_or.cu",
+                "replaces": "src/repro/kernels/topk_score.py:34",
+                "launches": drb_counts["drb_or"], "max_abs_err": 0,
+                "ms": main_or["ms"], "plain_ms": main_or["plain_ms"],
+                "bound_ms": main_or["bound_ms"],
+                "bound_by": main_or["bound_by"], "library_ms": None,
+                "library_note": "no PyTorch call runs a DRB or query",
+                "wrapper_ms": main_or["wrapper_ms"], "shapes": or_rows})
+    out.append({"name": "wtbc_decode", "route": "cuda",
+                "source": "src/repro_torch/csrc/wtbc_decode.cu",
+                "replaces": "src/repro/kernels/byte_rank.py:34",
+                "launches": drb_counts["wtbc_decode"], "max_abs_err": 0,
+                "ms": d_ms, "plain_ms": d_plain, "bound_ms": d_bound,
+                "bound_by": d_by, "library_ms": None,
+                "library_note": "no PyTorch call decodes a WTBC",
+                "wrapper_ms": d_call,
+                "shape": f"M={pos.numel()} (or iii BM25 snippets)",
+                "snippets_ms_per_call": snip_ms})
     del cands
     return out, k1_err
 

@@ -89,12 +89,16 @@ STAMPS = {
                " long long t_sel_ = clock64();"),
               (r"warp_lower_bound\(col, [^;]*;", "after",
                " if (threadIdx.x == 0) s_extra[0] += clock64() - t_sel_;"),
-              (r"return start \+ __shfl_sync\(kFull, at, t\);", "before",
+              (r"return start \+ __shfl_sync\(kFull(?:Mask)?, at, t\);",
+               "before",
                "if (threadIdx.x == 0) { s_extra[1] += clock64() - t_sel_; "
                "s_extra[2] += 1; } "),
               (r"sh_cur = 0;", "after",
                " s_extra[0] = s_extra[1] = s_extra[2] = 0;")),
-        extra=("select: counter-column search", "select: whole", "selects")),
+        extra=("select: counter-column search", "select: whole", "selects"),
+        # headers whose code the points and adds reach, inlined into the
+        # stamped copy where the source includes them
+        inline=("wtbc_select.cuh",)),
 }
 
 _STAMP_DECL = """
@@ -347,7 +351,13 @@ def main(argv=None) -> int:
             sd.mkdir()
             for h in d.glob("*.cuh"):
                 shutil.copy(h, sd / h.name)
-            text, _ = instrument((d / spec["source"]).read_text(), spec)
+            text = (d / spec["source"]).read_text()
+            for h in spec.get("inline", ()):
+                inc = f'#include "{h}"'
+                if inc in text:
+                    text = text.replace(inc, (d / h).read_text().replace(
+                        "#pragma once", ""), 1)
+            text, _ = instrument(text, spec)
             (sd / spec["source"]).write_text(text)
             jobs.append((sd / spec["source"], sd, od / "stamps.so"))
     nvcc_all(jobs)

@@ -22,11 +22,14 @@ row runs inside the kernel, at the full beam width P per trip, with no host
 sync (``kernels/drb_walk.py``).  Its plain version, the CPU path, drives
 the trips from the host: per trip one count batch for the B·(P·Q + Q)
 in-document and cursor counts and one bitmap rank batch for the 2·B·Q
-cursor ranks.  The bag-of-words search is loop-free: one
-``bitmap_rank1`` launch for the B·Q bitmap base ranks, then batched selects,
-locates and a scatter-add over every row at once, and one ``scored_topk``
-launch that scores every document of every row (its (n_docs, Q) per-word
-parts against the row's idf weights) and keeps each row's k best.
+cursor ranks.  The bag-of-words search is loop-free and on the card one
+``drb_or`` call (``kernels/drb_or.py``): a memset and three kernels — the
+words' tables, one warp per live (row, word, document) to select, locate
+and place its tf, then the scores of every document of every row fused
+with each row's top-k and its merge — with no host sync.  Its plain
+version, the CPU path, runs batched selects, locates and a scatter-add over
+every row at once, then one ``scored_topk`` of the (n_docs, Q) per-word
+parts against each row's idf weights.
 """
 from __future__ import annotations
 
@@ -41,8 +44,8 @@ from repro_torch.core.bitvec import BitVec
 from repro_torch.core.ranked import DRResult
 from repro_torch.core.scoring import BM25
 from repro_torch.core.wtbc import WTBCIndex
+from repro_torch.kernels import drb_or
 from repro_torch.kernels import drb_walk as walk
-from repro_torch.kernels import ops
 from repro_torch.kernels.drb_walk import word_rank1  # noqa: F401 (public)
 
 
@@ -215,55 +218,20 @@ def topk_drb_or(idx: WTBCIndex, aux: DRBAux, words: torch.Tensor,
     through the WTBC, read tf as the gap to the next 1, aggregate per
     document, take the top-k.
 
-    Every row's word is a padded ``max_df_cap``-wide gather (``max_df_cap``
-    must be >= the largest document frequency among the query words); the
-    aggregation is one scatter-add into a (B, Q, n_docs) tf table.  The
-    final step scores every document as its per-word parts (``measure.part``)
-    times the idf weights, added left to right over Q, and keeps the k best
-    under (score desc, doc asc) among the documents some query word occurs
-    in — one ``scored_topk`` (K6) launch for the whole batch, ``k <=
-    32768``.  ``idf`` / ``avg_dl`` as for :func:`topk_drb_and`.  Loop-free,
-    hence always exhaustive and fully certified.  Every leaf is the
-    reference's per-row ``topk_drb_or``."""
-    B, Q = words.shape
-    dev = words.device
-    N = idx.n_docs
-    cap = int(max_df_cap)
-    wmask, wl, valid, idf_w = _query_tables(idx, aux, words, wmask, measure,
-                                            idf)
-    avg = _avg_dl(idx, measure, avg_dl)
-    df_w = torch.where(valid, idx.df[wl], 0)
-    occ_w = word_occ(aux, wl)
-    js = torch.arange(cap, dtype=torch.int32, device=dev)
-    live = (js < df_w[..., None]) & valid[..., None]                # (B,Q,cap)
-    off = aux.bit_off[wl]
-    base = bitvec.rank1(aux.bv, off, kernel_backend=kernel_backend)
-    # one select per document; consecutive selects difference into tfs
-    sels = bitvec.select1(aux.bv, base[..., None] + 1 + torch.arange(
-        cap + 1, dtype=torch.int32, device=dev)) - off[..., None]
-    sel = sels[..., :-1]
-    tf = torch.where(js + 1 < df_w[..., None], sels[..., 1:],
-                     occ_w[..., None]) - sel
-    first = wtbc.locate(idx, wl[..., None].expand(B, Q, cap), sel + 1)
-    d = torch.where(live, wtbc.doc_of_pos(idx, first), N)          # N: drop
-    tf = torch.where(live, tf, 0)
-    table = torch.zeros((B, Q, N + 1), dtype=torch.int32, device=dev)
-    table.scatter_add_(2, d.long(), tf)
-    tf_t = table[..., :N].transpose(1, 2)                           # (B,N,Q)
-    part = measure.part(tf_t, idx.doc_len, avg).contiguous()
-    hit = torch.any((tf_t * valid[:, None, :]) > 0, 2)
-    kk = min(k, N)
-    tile = max(1024, 1 << (kk - 1).bit_length())
-    top_s, top_d = ops.scored_topk(part, idf_w, k=kk, tile=tile, valid=hit,
-                                   kernel_backend=kernel_backend)
-    if kk < k:                                  # fewer documents than k
-        top_s = torch.cat([top_s, top_s.new_full((B, k - kk), H.NEG_INF)], 1)
-        top_d = torch.cat([top_d, top_d.new_full((B, k - kk), -1)], 1)
-    found = top_s > H.NEG_INF
-    width = torch.full((B,), cap, dtype=torch.int32, device=dev)
-    return DRResult(torch.where(found, top_d, -1), top_s,
-                    found.sum(1, dtype=torch.int32), width, width.clone(),
-                    torch.zeros(B, dtype=torch.bool, device=dev),
-                    certified=found,
-                    bound=torch.full((B,), H.NEG_INF, dtype=torch.float32,
-                                     device=dev))
+    Each row's word gathers at most ``max_df_cap`` documents (which must be
+    >= the largest document frequency among the query words); every
+    document is scored as its per-word parts (``measure.part``) times the
+    idf weights, added left to right over Q, and the k best under (score
+    desc, doc asc) among the documents some query word occurs in are kept.
+    On the card the whole batch is one ``drb_or`` call — a memset and three
+    kernels, no host sync (``kernels/drb_or.py``; ``min(k, n_docs) <=
+    32768``); its plain version (a padded gather, a scatter-add, one
+    ``scored_topk``) runs on the CPU and with ``kernel_backend="ref"``.
+    ``idf`` / ``avg_dl`` as for :func:`topk_drb_and`.  Loop-free, hence
+    always exhaustive and fully certified.  Every leaf is the reference's
+    per-row ``topk_drb_or``."""
+    idf_all = measure.idf(idx) if idf is None else idf
+    return drb_or.drb_or(idx, aux, words, wmask, measure, k=k,
+                         max_df_cap=max_df_cap, idf_all=idf_all,
+                         avg=_avg_dl(idx, measure, avg_dl),
+                         kernel_backend=kernel_backend)

@@ -19,7 +19,7 @@ array (the paper's footnote-2 fast select), making document extents O(1).
 The build is the reference's numpy host build; the index is a frozen
 dataclass of tensors on one device plus host integers for scalars.
 ``locate``, ``decode_at`` and ``extract`` are batched over many positions
-(one ``byte_rank`` launch per level of a decode on the card).
+(a whole decode is one ``wtbc_decode`` launch on the card).
 """
 from __future__ import annotations
 
@@ -30,7 +30,7 @@ import torch
 
 from repro_torch.core import bytemap, scdc
 from repro_torch.core.bytemap import ByteMap
-from repro_torch.kernels import backend, ops
+from repro_torch.kernels import backend, ops, wtbc_decode
 
 MAX_LEVELS = scdc.MAX_CODE_LEN  # 3
 SEP_RANK = 0                    # '$' is frequency-rank 0 by construction
@@ -315,36 +315,11 @@ def decode_at(idx: WTBCIndex, pos: torch.Tensor, *,
     """Word-rank at root position ``pos[i]``; same-shape int32.
 
     Descends with one access and two ranks per level, reconstructing the
-    (s,c)-DC rank arithmetically from the byte path.  Per level the 2·M
-    ranks go down in one ``byte_rank`` launch on the card; lanes whose word
-    ended at an upper level ride along (their ranks are discarded), so the
-    batch shape never depends on the data."""
-    s, c = idx.s, idx.c
-    shape = pos.shape
-    p = pos.reshape(-1).to(torch.int32)
-    M = p.numel()
-    prefix = torch.zeros_like(p)     # node key at the current level
-    x = torch.zeros_like(p)          # accumulated continuer value
-    rank_val = torch.zeros_like(p)
-    done = torch.zeros(M, dtype=torch.bool, device=p.device)
-    base_k, width = 0, s             # first rank of the k-byte band
-    for L in range(MAX_LEVELS):
-        lv = idx.levels[L]
-        off = idx.offsets[L][prefix.long()]
-        b = bytemap.access(lv, off + p).to(torch.int32)
-        is_stop = b < s
-        val = x * s + b + base_k
-        rank_val = torch.where(is_stop & ~done, val, rank_val)
-        r = bytemap.rank(lv, torch.cat([b, b]), torch.cat([off + p, off]),
-                         kernel_backend=kernel_backend)
-        child_rel = r[:M] - r[M:]
-        p = torch.where(is_stop, p, child_rel)
-        prefix = torch.where(is_stop, prefix, prefix * c + (b - s))
-        x = torch.where(is_stop, x, x * c + (b - s))
-        done = done | is_stop
-        base_k += width
-        width *= c
-    return rank_val.reshape(shape)
+    (s,c)-DC rank arithmetically from the byte path.  On the card every
+    position runs every level in one ``wtbc_decode`` launch, stopping at
+    its word's last byte; on the CPU, or with ``kernel_backend="ref"``, the
+    plain batched descent runs (``kernels/wtbc_decode.py``)."""
+    return wtbc_decode.wtbc_decode(idx, pos, kernel_backend=kernel_backend)
 
 
 def extract(idx: WTBCIndex, lo: torch.Tensor, length: int, *,

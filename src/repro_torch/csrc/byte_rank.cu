@@ -5,12 +5,15 @@
 // counter cell of pos's block plus a masked compare over the tile prefix.
 //
 // What bounds it on the H100: memory latency.  A query is one counter cell
-// and one tile prefix (at most `block` bytes), a gather whose address comes
-// from the query itself.  The TPU kernel DMAs the whole tile and counter row
-// into VMEM per grid step; here one warp per query reads only the counter
-// cell and the prefix, 16 bytes per lane per load, with the per-level rank
-// that the wavelet_count kernel already uses (wtbc::warp_rank), and many
-// queries stay in flight: 8 warps per block, M / 8 blocks.
+// and at most half a tile, a gather whose address comes from the query
+// itself.  The TPU kernel DMAs the whole tile and counter row into VMEM per
+// grid step; here one warp per query counts from the nearer end of the
+// tile (wtbc::warp_rank_near, the rank K1 and K2 use: the prefix [0, cut)
+// against the block's counter row, or the suffix [cut, valid) against the
+// next one), every 16-byte load and the counter cell issued before any
+// compare, and many queries stay in flight: 8 warps per block, M / 8
+// blocks.  WTBC decoding no longer calls it: wtbc_decode.cu runs the whole
+// descent; bytemap.rank still does.
 //
 // Layout contract (checked by the Python wrapper): data contiguous, 16-byte
 // aligned, n_blocks * block bytes, block a multiple of 16; counts
@@ -28,7 +31,7 @@ byte_rank_kernel(wtbc::Level lv, int block, const int32_t* __restrict__ bytes,
   const int i = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (i >= m) return;  // uniform across the warp
   const int p = wtbc::clamp_pos(0, __ldg(pos + i), lv.length);
-  const int r = wtbc::warp_rank(lv, block, __ldg(bytes + i), p);
+  const int r = wtbc::warp_rank_near(lv, block, __ldg(bytes + i), p);
   if ((threadIdx.x & 31) == 0) out[i] = r;
 }
 

@@ -54,6 +54,10 @@
 // as long as with K1's layout of neighbouring lanes on neighbouring 16-byte
 // chunks (an H100, scripts/drb_walk_ab.py --stamps).
 //
+// The byte select, the locate, the document search and the bitmap rank are
+// in wtbc_select.cuh and the scoring in drb_score.cuh, shared with the DRB
+// bag-of-words kernels (drb_or.cu).
+//
 // Layout contract (checked by the Python wrapper): levels as for
 // wavelet_count; sep_pos, doc_len (n_docs,) int32; occ (V,) int32; bit
 // vector words (n_blocks * 32,) 32-bit patterns, counts (n_blocks + 1,)
@@ -63,163 +67,23 @@
 #include <climits>
 #include <math_constants.h>
 
-#include "wtbc_descent.cuh"
+#include "drb_score.cuh"
+#include "wtbc_select.cuh"
 
 namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kScanLoads = 8;                  // 16-byte loads a lane issues
-constexpr int kPassBytes = 32 * 16 * kScanLoads;  // 4,096: block 4096 in one
-constexpr int kBitsPerBlock = 1024;            // bit vector: a counter per 32 words
 constexpr int kPathInts = sizeof(wtbc::WordPath) / 4;
-
-// Number of i in [0, n) with a[i * stride] < target, a non-decreasing: a
-// 32-ary search, each round one probe per lane with all of them in flight,
-// a ballot picks the interval.  Every lane returns it.
-__device__ __forceinline__ int warp_lower_bound(const int32_t* a, int stride,
-                                                int n, int target) {
-  const int lane = threadIdx.x & 31;
-  int lo = 0, hi = n;  // the answer lies in [lo, hi]
-  while (lo < hi) {
-    const int step = (hi - lo + 31) / 32;
-    const int i = lo + lane * step;
-    const bool t = i < hi && __ldg(a + (size_t)i * stride) < target;
-    const int m = __popc(__ballot_sync(kFull, t));  // a prefix of the lanes
-    if (m == 0) {
-      hi = lo;
-    } else {
-      const int nlo = lo + (m - 1) * step + 1;
-      hi = min(hi, lo + m * step);
-      lo = nlo;
-    }
-  }
-  return lo;
-}
-
-// Position of the j-th (1-based) occurrence of `byte` in one level, the
-// level's length where there is none (core/bytemap.py: select).  The block
-// is the last one with fewer than j occurrences before it.  Its logical
-// bytes (padding left out: byte 0 is a real codeword byte) are read as
-// K1's nearer-end rank reads a tile, neighbouring lanes on neighbouring
-// 16-byte chunks and every load issued before any compare; eight warp sums
-// find the 512-byte chunk that holds the occurrence, a prefix sum over the
-// lanes the lane, and that lane the byte.  Every lane returns it.
-__device__ __forceinline__ int warp_select(const wtbc::Level& L, int block,
-                                           int byte, int j) {
-  const int lane = threadIdx.x & 31;
-  const int32_t* col = L.counts + byte;
-  const int total = __ldg(col + (size_t)L.n_blocks * wtbc::kCounterRow);
-  const int blk =
-      warp_lower_bound(col, wtbc::kCounterRow, L.n_blocks, j) - 1;
-  if (j < 1 || j > total) return L.length;
-  int need = j - __ldg(col + (size_t)blk * wtbc::kCounterRow);
-  const int start = blk * block;
-  const int valid = min(block, L.length - start);
-  const uint8_t* tile = L.data + (size_t)start;
-  const uint32_t pat = 0x01010101u * (uint32_t)byte;
-  for (int b0 = 0; b0 < valid; b0 += kPassBytes) {
-    uint4 v[kScanLoads];
-#pragma unroll
-    for (int i = 0; i < kScanLoads; ++i) {  // every load before any compare
-      const int c = b0 + (i * 32 + lane) * 16;
-      v[i] = c < valid ? __ldg(reinterpret_cast<const uint4*>(tile + c))
-                       : make_uint4(0u, 0u, 0u, 0u);
-    }
-    // the 512-byte chunk i that holds the occurrence, by its warp sums
-    int cnt = 0, hit = -1, run = 0, chunk_before = 0;
-    uint4 vh = make_uint4(0u, 0u, 0u, 0u);
-#pragma unroll
-    for (int i = 0; i < kScanLoads; ++i) {
-      const int c = wtbc::count16(v[i], pat, 0,
-                                  valid - (b0 + (i * 32 + lane) * 16));
-      const int sum = __reduce_add_sync(kFull, c);
-      if (hit < 0 && run + sum >= need) {  // uniform across the warp
-        hit = i;
-        chunk_before = run;
-        cnt = c;
-        vh = v[i];
-      }
-      run += sum;
-    }
-    if (hit < 0) {
-      need -= run;
-      continue;
-    }
-    need -= chunk_before;
-    int incl = cnt;  // the lanes' prefix sums within the chunk
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int x = __shfl_up_sync(kFull, incl, o);
-      if (lane >= o) incl += x;
-    }
-    const int t = __ffs(__ballot_sync(kFull, incl >= need)) - 1;
-    int at = -1;
-    if (lane == t) {
-      int rem = need - (incl - cnt);  // 1-based among this lane's matches
-      const int c = b0 + (hit * 32 + lane) * 16;
-      const uint32_t w[4] = {vh.x, vh.y, vh.z, vh.w};
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        uint32_t bits = __vcmpeq4(w[q], pat) &
-                        wtbc::low_bytes(valid - (c + 4 * q)) &
-                        0x80808080u;  // one bit per equal byte
-        const int n = __popc(bits);
-        if (at < 0) {
-          if (rem <= n) {
-            for (int r = 1; r < rem; ++r) bits &= bits - 1u;
-            at = c + 4 * q + ((__ffs(bits) - 1) >> 3);
-          } else {
-            rem -= n;
-          }
-        }
-      }
-    }
-    return start + __shfl_sync(kFull, at, t);
-  }
-  return L.length;  // not reached for j within the level's counts
-}
-
-// Root position of the j-th occurrence of a word (core/wtbc.py: locate):
-// leaf level up to the root, one select per level.
-__device__ __forceinline__ int warp_locate(const wtbc::Levels& lv,
-                                           const wtbc::WordPath& w, int j) {
-  int pos = 0;
-#pragma unroll
-  for (int L = wtbc::kLevels - 1; L >= 0; --L) {
-    if (L >= w.len) continue;  // uniform across the warp
-    const int idx = w.base[L] + (L == w.len - 1 ? j : pos + 1);
-    pos = warp_select(lv.lv[L], lv.block, w.byte[L], idx) - w.off[L];
-  }
-  return pos;
-}
-
-// Set bits among the first pos bits of the tf bitmaps (bitmap_rank.cu's
-// rank, one warp, one lane per word); every lane returns it.
-__device__ __forceinline__ int warp_rank1(const uint32_t* words,
-                                          const int32_t* counts, int n_blocks,
-                                          int n_bits, int pos) {
-  const int lane = threadIdx.x & 31;
-  const int p = wtbc::clamp_pos(0, pos, n_bits);
-  const int blk = min(p / kBitsPerBlock, n_blocks - 1);
-  const int n_valid = p - blk * kBitsPerBlock - lane * 32;
-  const int cell = __ldg(counts + blk);
-  const uint32_t w = __ldg(words + (size_t)blk * 32 + lane);
-  const uint32_t mask =
-      n_valid >= 32 ? ~0u : (n_valid <= 0 ? 0u : (1u << n_valid) - 1u);
-  return cell + wtbc::warp_sum(__popc(w & mask));
-}
+using drb::Scoring;
+using wtbc::warp_locate;
+using wtbc::warp_lower_bound;
+using wtbc::warp_rank1;
 
 __device__ __forceinline__ bool precedes(float s1, int d1, float s2, int d2) {
   return s1 > s2 || (s1 == s2 && d1 < d2);
 }
-
-struct Scoring {
-  int bm25;
-  const float* avg_dl;  // float32 scalar on the card (BM25)
-  float one_minus_b, b, k1_plus_1, k1;
-};
 
 __host__ __device__ __forceinline__ long long ws_ints(int q, int p, int k) {
   // per word: path, valid, idf, df, off, occ, r0, leaf0, p, nd, clast;
@@ -401,21 +265,13 @@ drb_walk_kernel(wtbc::Levels lv, wtbc::WordTables t,
       bool present = fresh;
       float acc = 0.f;
       if (fresh) {
-        float norm = 0.f;
-        if (sc.bm25) {
-          const float ratio = __fdiv_rn(__int2float_rn(cdl[i]), *sc.avg_dl);
-          norm = __fadd_rn(sc.one_minus_b, __fmul_rn(sc.b, ratio));
-        }
+        const float norm =
+            sc.bm25 ? drb::doc_norm(sc, *sc.avg_dl, cdl[i]) : 0.f;
         for (int q = 0; q < Q; ++q) {
           const size_t at = (size_t)i * Q + q;
           const int tf = valid[q] ? le1[at] - le0[at] : 0;
           present = present && (tf > 0 || !valid[q]);
-          const float x = __int2float_rn(tf);
-          const float part =
-              sc.bm25 ? __fdiv_rn(__fmul_rn(x, sc.k1_plus_1),
-                                  __fadd_rn(x, __fmul_rn(sc.k1, norm)))
-                      : x;
-          acc = __fadd_rn(acc, __fmul_rn(part, idf[q]));
+          acc = drb::add_part(acc, drb::word_part(sc, tf, norm), idf[q]);
         }
       }
       cpres[i] = present;

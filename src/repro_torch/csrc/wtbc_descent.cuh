@@ -1,6 +1,7 @@
 // Shared device code of the WTBC count descent, used by the wavelet_count
-// kernel (wavelet_descent.cu) and the beam loop (beam_step.cu), and of the
-// byte rank used by byte_rank.cu and segment_tf.cu.
+// kernel (wavelet_descent.cu), the beam loop (beam_step.cu) and the DRB
+// walk (drb_walk.cu), and of the byte ranks used by byte_rank.cu,
+// segment_tf.cu and wtbc_decode.cu.
 //
 // One count: occurrences of word-rank w in root range [lo, hi).  At each of
 // the three levels an endpoint a maps to p = clamp(node_off + a, 0, length)
@@ -17,9 +18,10 @@
 // index is larger than the 50 MB L2, so a rank's tile reads often go to HBM,
 // and a count is a chain of dependent ranks.  Two rank primitives:
 //
-// * warp_rank (K4, K5): counter cell of p's tile plus the tile prefix
+// * warp_rank (K4): counter cell of p's tile plus the tile prefix
 //   [0, p - blk*block), 512 bytes per warp per loop step.
-// * warp_rank_near (K1, K2): counts from the nearer end of the tile.  With
+// * warp_rank_near (K1, K2, K5, drb_walk; wtbc_decode its rule for two
+//   positions at once): counts from the nearer end of the tile.  With
 //   valid = min(block, length - blk*block) the tile's logical bytes, a cut
 //   past valid / 2 ranks as counts[blk + 1][byte] minus the suffix
 //   [cut, valid) — the last tile is zero-padded and its counters leave the

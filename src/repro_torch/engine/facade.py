@@ -526,8 +526,7 @@ class SearchEngine:
         straight from the compressed index (no stored text).  Returns one
         list per query, one id array per hit (shorter documents come back
         whole).  Every hit of the result is decoded in one batched
-        ``wtbc.decode_at`` — on the card, one ``byte_rank`` launch per
-        level."""
+        ``wtbc.decode_at`` — on the card, one ``wtbc_decode`` launch."""
         length = int(length)
         if length < 1:
             raise ValueError(f"length must be >= 1, got {length}")

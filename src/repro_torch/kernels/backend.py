@@ -167,8 +167,26 @@ DRB_WALK = CudaKernel(
     + (_I, _I, _I)                    # P, k, max_pops
     + (_P,) * 7                       # p, nd, top_s, top_d, it, cands, padded
     + (_I, _P, _I, _P))               # ws_bytes, scratch, B, stream
+DRB_OR = CudaKernel(
+    "drb_or", "drb_or.cu",
+    _LEVEL_ARGS + _TABLE_ARGS
+    + (_P, _P, _I)                    # sep_pos, doc_len, n_docs
+    + (_P, _P, _I, _I, _P)            # bitmaps: words, counts, n_blocks,
+                                      # n_bits, bit_off
+    + (_P, _P, _P)                    # has_bm, df, idf
+    + (_P, _P, _I, _I, _I)            # words, wmask, B, Q, cap
+    + (_I, _P, _F, _F, _F, _F)        # bm25, avg_dl, 1 - b, b, k1 + 1, k1
+    + (_I,)                           # k
+    + (_P,) * 8                       # top_s, top_d, n_found, iters, pops,
+                                      # overflowed, certified, bound
+    + (_P, ctypes.c_longlong, _P))    # scratch, its ints, stream
+WTBC_DECODE = CudaKernel(
+    "wtbc_decode", "wtbc_decode.cu",
+    _LEVEL_ARGS
+    + (_P, _P, _P, _I, _I)            # offsets per level, s, c
+    + (_P, _P, _I, _P))               # pos, out, M, stream
 KERNELS = (WAVELET_COUNT, BEAM_LOOP, BITMAP_RANK1, BYTE_RANK, SEGMENT_TF,
-           SCORED_TOPK, DRB_WALK)
+           SCORED_TOPK, DRB_WALK, DRB_OR, WTBC_DECODE)
 
 
 def launch_counts() -> dict[str, int]:

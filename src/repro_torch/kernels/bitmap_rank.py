@@ -6,8 +6,9 @@ an LSB-first bit vector of uint32 words (held as int32 bit patterns, since
 PyTorch's uint32 supports few operations), with a cumulative counter every
 ``WORDS_PER_BLOCK`` words: one warp per query on the card, one lane per word
 (``csrc/bitmap_rank.cu``); the plain version is
-``kernels/ref.py:bitmap_rank1_ref``.  WTBC-DRB's cursor recomputation and
-bag-of-words base ranks make all of a trip's ranks in one launch.
+``kernels/ref.py:bitmap_rank1_ref``.  ``bitvec.rank1`` calls it; the DRB
+searches on the card rank inside their own kernels (``drb_walk``,
+``drb_or``), so it runs on their plain versions' path only.
 """
 from __future__ import annotations
 

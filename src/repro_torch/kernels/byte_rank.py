@@ -3,10 +3,11 @@ bytemap.
 
 Replaces the Pallas kernel ``repro/kernels/byte_rank.py`` (``_kernel``).  For
 M (byte, pos) queries it returns the occurrences of ``bytes_q[i]`` in
-``data[0:pos_q[i]]``: one warp per query on the card
-(``csrc/byte_rank.cu``, built on the per-level rank K1 already uses), the
-plain version ``kernels/ref.py:byte_rank_ref`` on the CPU.  WTBC decoding
-(``wtbc.decode_at``) makes all of a level's ranks in one launch.
+``data[0:pos_q[i]]``: one warp per query on the card counting from the
+nearer end of the tile (``csrc/byte_rank.cu``, on the per-level rank K1
+uses), the plain version ``kernels/ref.py:byte_rank_ref`` on the CPU.
+``bytemap.rank`` calls it; WTBC decoding on the card runs its own kernel
+(``kernels/wtbc_decode.py``), so only the plain decode ranks through it.
 """
 from __future__ import annotations
 

@@ -210,18 +210,42 @@ def ws_bytes(Q: int, P: int, k: int) -> int:
     return 4 * (Q * 20 + 6 * P + 2 * P * Q + 4 * k)
 
 
-def _scoring(measure, qt: DRBQuery, dev) -> tuple:
-    """(bm25, avg_dl pointer, 1 - b, b, k1 + 1, k1) as the kernel takes
-    them: the host's float32 constants of ``core/scoring.py``."""
+def bitmap_args(bv, dev) -> tuple:
+    """(words, counts, n_blocks, n_bits) of the tf bitmaps as the DRB
+    kernels take them, checked for what the device code assumes: contiguous
+    int32 words of whole 32-word blocks, (n_blocks + 1,) int32 counters and
+    int32 bit positions, on ``dev``."""
+    def need(cond: bool, what: str) -> None:
+        if not cond:
+            raise ValueError(f"tf bitmaps: {what}")
+    n_blocks = bv.counts.shape[0] - 1
+    need(bv.words.dtype == torch.int32 and bv.words.is_contiguous()
+         and bv.words.numel() == n_blocks * WORDS_PER_BLOCK
+         and bv.words.device == dev, "the words must be contiguous int32 of "
+         f"n_blocks*{WORDS_PER_BLOCK} on {dev}")
+    need(bv.counts.dtype == torch.int32 and bv.counts.is_contiguous()
+         and bv.counts.dim() == 1 and bv.counts.device == dev,
+         "the counts must be contiguous (n_blocks+1,) int32")
+    need(0 <= bv.n_bits <= n_blocks * WORDS_PER_BLOCK * 32 < 2**31,
+         "n_bits must fit the words and int32 positions")
+    return bv.words.data_ptr(), bv.counts.data_ptr(), n_blocks, bv.n_bits
+
+
+def scoring_args(measure, avg, dev, who: str = "drb_walk") -> tuple:
+    """(bm25, avg_dl pointer, 1 - b, b, k1 + 1, k1) as the DRB kernels take
+    them (``csrc/drb_score.cuh``): the host's float32 constants of
+    ``core/scoring.py``; ``avg`` BM25's float32 scalar on ``dev``.  Raises,
+    naming ``who``, on a measure no kernel scores."""
+    def need(cond: bool, what: str) -> None:
+        if not cond:
+            raise ValueError(f"{who}: {what}")
     if isinstance(measure, BM25):
-        avg = qt.avg
-        _require(avg is not None and avg.dtype == torch.float32
-                 and avg.numel() == 1 and avg.device == dev,
-                 "BM25 needs avg_dl as a float32 scalar on the batch's "
-                 "device")
+        need(avg is not None and avg.dtype == torch.float32
+             and avg.numel() == 1 and avg.device == dev,
+             "BM25 needs avg_dl as a float32 scalar on the batch's device")
         return (1, avg.data_ptr(), _f32(1.0 - measure.b), _f32(measure.b),
                 _f32(measure.k1 + 1.0), _f32(measure.k1))
-    _require(isinstance(measure, TfIdf), f"no kernel scores {measure!r}")
+    need(isinstance(measure, TfIdf), f"no kernel scores {measure!r}")
     return (0, None, 0.0, 0.0, 0.0, 0.0)
 
 
@@ -258,20 +282,10 @@ def drb_walk(idx, aux, qt: DRBQuery, st: DRBState, measure, *, k: int,
         _require(t.dtype == dtype and tuple(t.shape) == shape
                  and t.is_contiguous() and t.device == dev,
                  f"{name} must be a contiguous {dtype} {shape} on {dev}")
-    bv = aux.bv
-    n_blocks = bv.counts.shape[0] - 1
-    _require(bv.words.dtype == torch.int32 and bv.words.is_contiguous()
-             and bv.words.numel() == n_blocks * WORDS_PER_BLOCK
-             and bv.words.device == dev, "the bitmaps' words must be "
-             f"contiguous int32 of n_blocks*{WORDS_PER_BLOCK} on {dev}")
-    _require(bv.counts.dtype == torch.int32 and bv.counts.is_contiguous()
-             and bv.counts.dim() == 1 and bv.counts.device == dev,
-             "the bitmaps' counts must be contiguous (n_blocks+1,) int32")
-    _require(0 <= bv.n_bits <= n_blocks * WORDS_PER_BLOCK * 32 < 2**31,
-             "n_bits must fit the words and int32 positions")
+    bv_args = bitmap_args(aux.bv, dev)
     lv_args = level_args(idx.levels)
     tb_args = table_args(idx.cw, idx.cw_len, idx.node_off, idx.base_rank)
-    bm25, avg_p, one_minus_b, b, k1p1, k1 = _scoring(measure, qt, dev)
+    bm25, avg_p, one_minus_b, b, k1p1, k1 = scoring_args(measure, qt.avg, dev)
     words_i = qt.wl.to(torch.int32).contiguous()
     valid_i = qt.valid.to(torch.int32).contiguous()
     idf_w = qt.idf_w.to(torch.float32).contiguous()
@@ -284,8 +298,7 @@ def drb_walk(idx, aux, qt: DRBQuery, st: DRBState, measure, *, k: int,
         backend.DRB_WALK.launch(
             *lv_args, *tb_args, idx.sep_pos.data_ptr(),
             idx.doc_len.data_ptr(), idx.occ.data_ptr(), idx.n, idx.n_docs,
-            bv.words.data_ptr(), bv.counts.data_ptr(), n_blocks, bv.n_bits,
-            aux.bit_off.data_ptr(), words_i.data_ptr(), valid_i.data_ptr(),
+            *bv_args, aux.bit_off.data_ptr(), words_i.data_ptr(), valid_i.data_ptr(),
             idf_w.data_ptr(), df_w.data_ptr(), row_ok.data_ptr(), Q, bm25,
             avg_p, ctypes.c_float(one_minus_b), ctypes.c_float(b),
             ctypes.c_float(k1p1), ctypes.c_float(k1), P, k,

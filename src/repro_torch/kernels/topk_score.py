@@ -14,11 +14,12 @@ the merge (so a tile of negative real scores can lose rows to them), rows
 past C never compete: the result is the true top-k, as the plain version's.
 An optional ``valid`` mask keeps rows out in the same way.  A batch of
 queries, each with its own candidates, runs in one launch (the grid's second
-dimension).  WTBC-DRB's bag-of-words search ranks a whole batch's (B,
-n_docs, Q) per-word score parts against its (B, Q) idf weights here, the
-mask leaving out the documents no query word occurs in — the reference
-kernel's first consumer, the DRB "score every candidate, keep the best"
-step.
+dimension).  The plain version of WTBC-DRB's bag-of-words search
+(``kernels/drb_or.py:drb_or_ref``) ranks a whole batch's (B, n_docs, Q)
+per-word score parts against its (B, Q) idf weights here, the mask leaving
+out the documents no query word occurs in — the DRB "score every candidate,
+keep the best" step; on the card that search runs ``drb_or``, which fuses
+this step with the gather.
 """
 from __future__ import annotations
 

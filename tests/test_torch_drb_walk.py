@@ -324,14 +324,14 @@ def test_workspace_and_scoring_arguments():
     assert walk.ws_bytes(3, 1, 10) == 4 * (60 + 6 + 6 + 40)
     assert walk.ws_bytes(64, 16, 1000) <= walk.MAX_SHARED_WS
     qt = walk.DRBQuery(*(None,) * 6, torch.tensor(np.float32(5.5)))
-    bm, avg_p, omb, b, k1p1, k1 = walk._scoring(scoring.BM25(k1=1.3, b=0.7),
-                                                qt, torch.device("cpu"))
+    bm, avg_p, omb, b, k1p1, k1 = walk.scoring_args(
+        scoring.BM25(k1=1.3, b=0.7), qt.avg, torch.device("cpu"))
     assert bm == 1 and avg_p == qt.avg.data_ptr()
     assert (omb, b, k1p1, k1) == tuple(float(np.float32(x)) for x in
                                        (1.0 - 0.7, 0.7, 1.3 + 1.0, 1.3))
-    assert walk._scoring(scoring.TfIdf(), qt, None)[:2] == (0, None)
+    assert walk.scoring_args(scoring.TfIdf(), qt.avg, None)[:2] == (0, None)
     with pytest.raises(ValueError, match="no kernel scores"):
-        walk._scoring(object(), qt, None)
+        walk.scoring_args(object(), qt.avg, None)
     assert [walk.budget_arg(x) for x in (None, -3, -1, 0, 7)] == \
         [-1, 0, 0, 0, 7]
 
