@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""On-card smoke run of the PyTorch/CUDA port (WTBC-DR and WTBC-DRB search).
+"""On-card smoke run of the PyTorch/CUDA port (WTBC-DR, WTBC-DRB and
+positional search).
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -9,7 +10,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 Phases (any failure exits non-zero; no phase is caught and ignored, and
 nothing falls back to the CPU):
 
-1. build  — compile the nine CUDA kernels from ``src/repro_torch/csrc`` (one
+1. build  — compile the ten CUDA kernels from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all at once); print the card's name and power limit.
 2. data   — a quarter of the paper's ALL collection (718,691-word vocabulary,
    Zipf 1.2, mean 633 tokens per document): 86,445 documents, about 55 M
@@ -78,6 +79,33 @@ nothing falls back to the CPU):
    ``wtbc_decode`` per snippet decode), DRB ms per batch, ``snippets`` ms
    per call, and the device's idle share on the DRB ``or`` ii batch (over
    ten searches) and on the ``and`` ii and iii batches.
+11. positional search — batches of B = 8, k = 10: phrase rows of 2-3
+   consecutive words of documents (every row has a hit), phrase and near
+   rows of the band ii and iii words, near rows of three words of one
+   document within 6 tokens at windows 8 and 64, and a near batch whose
+   first row's words occur 10^5-10^6 times (several passes of the
+   locates and the sweep).  ``wtbc_locate`` against its plain version,
+   bitwise: random occurrences of 1-, 2- and 3-byte words, occurrences
+   whose select lands on a block edge of each level, j = 0 and occ + 1.
+   Every batch under tf-idf and BM25 on the card against the plain
+   versions on the card (``kernel_backend="ref"``), every leaf bitwise;
+   the phrase and near tables against a host brute force over the
+   corpus's tokens (a shifted compare for phrase; for near the minimal
+   cover on the documents holding every word, and every word's tf).  Then,
+   launch counters reset, ``search(mode="phrase"|"near")`` and
+   ``word_positions`` as a user calls them: each batch only
+   ``wtbc_locate`` (and for phrase ``wtbc_decode``) launches, the results
+   equal the core's, ``word_positions`` of phrase hits equal the tokens
+   and each match is the phrase.  Timings: ms per batch, launches per
+   batch, the idle share of a phrase and of the heavy near batch, and
+   ``wtbc_locate``'s device, wrapper and plain times and bound
+   (``locate_bytes``) at the lanes the path gives it.
+12. F1 and F2 — DRB ``or`` at k = 40,000 on two rows of words in 46-99% of
+   the documents (more than 40,000 hits a row), and the mega core at a
+   pool of 1.2 M slots (past one block's shared memory) on the ``and`` ii
+   batch and the ``or`` iii batch at 64 pops, each against its plain
+   version on the card, every leaf bitwise; device times beside k = 10
+   and the default cap.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -148,13 +176,13 @@ def time_cuda(fn, reps: int, warm: int = 3, setup=None) -> float:
     return total / reps
 
 
-def profile_device(fn, reps: int, kernel: str | None = None
-                   ) -> tuple[float, float]:
-    """Run ``fn`` ``reps`` times under ``torch.profiler`` and return (device
-    ms per call of the kernels whose name holds ``kernel`` — or of all
-    kernels when None —, wall ms per call).  Device time is the sum of the
-    kernels' own times on the card, so host overhead between launches is
-    not in it."""
+PROFILE_SESSIONS = 4   # a torch.profiler session at times records no
+                       # device activity at all; it is then run again
+
+
+def _profile_rows(fn, reps: int) -> tuple[list[tuple[str, float]], float]:
+    """One ``torch.profiler`` session over ``reps`` calls of ``fn``: the
+    device kernels' (name, own ms per call) and the wall ms per call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -166,14 +194,65 @@ def profile_device(fn, reps: int, kernel: str | None = None
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / reps
-    dev_us = 0.0
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or (
-                kernel is not None and kernel not in e.key):
-            continue
-        dev_us += getattr(e, "self_device_time_total",
-                          getattr(e, "self_cuda_time_total", 0.0))
-    return dev_us / 1e3 / reps, wall
+    rows = [(e.key, getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0.0))
+             / 1e3 / reps) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    return rows, wall
+
+
+def _profiled(fn, reps: int, kernel: str | None
+              ) -> tuple[list[tuple[str, float]], float] | None:
+    """The rows and wall of the first of ``PROFILE_SESSIONS`` sessions that
+    recorded device time (for ``kernel`` when it is given), else None."""
+    for _ in range(PROFILE_SESSIONS):
+        rows, wall = _profile_rows(fn, reps)
+        if sum(ms for key, ms in rows
+               if kernel is None or kernel in key) > 0:
+            return rows, wall
+    return None
+
+
+def profile_device(fn, reps: int, kernel: str | None = None,
+                   need: bool = True) -> tuple[float, float]:
+    """Run ``fn`` ``reps`` times under ``torch.profiler`` and return (device
+    ms per call of the kernels whose name holds ``kernel`` — or of all
+    kernels when None —, wall ms per call).  Device time is the sum of the
+    kernels' own times on the card, so host overhead between launches is
+    not in it.  Where no session records that time, ``need`` falls back to
+    CUDA events around each call (then launch gaps are in it, and the log
+    says so); without ``need`` (a part that may launch nothing) it is 0."""
+    got = _profiled(fn, reps, kernel)
+    if got is not None:
+        rows, wall = got
+        return sum(ms for key, ms in rows
+                   if kernel is None or kernel in key), wall
+    if not need:
+        return 0.0, 0.0
+    t0 = time.perf_counter()
+    ms = time_cuda(fn, reps=reps, warm=1)
+    wall = (time.perf_counter() - t0) * 1e3 / (reps + 1)
+    log(f"the profiler recorded no device time for {kernel or 'any kernel'} "
+        f"in {PROFILE_SESSIONS} sessions: CUDA events instead, "
+        f"{ms:.6f} ms per call")
+    check(ms > 0, f"CUDA events timed {kernel or 'the call'} at 0 ms")
+    return ms, wall
+
+
+def device_breakdown(fn, reps: int, top: int = 6
+                     ) -> tuple[float, float, list[tuple[str, float]]]:
+    """(device ms per call, wall ms per call, the ``top`` device kernels by
+    their own ms per call) of ``fn`` from one ``torch.profiler`` session
+    over ``reps`` calls, as ``profile_device`` reads them: where a batch's
+    device time goes.  Where no session records device time, the busy time
+    is ``profile_device``'s CUDA-event time and the list is empty."""
+    got = _profiled(fn, reps, None)
+    if got is None:
+        busy, wall = profile_device(fn, reps)
+        return busy, wall, []
+    rows, wall = got
+    rows.sort(key=lambda r: -r[1])
+    return sum(r[1] for r in rows), wall, rows[:top]
 
 
 def wall_ms(fn) -> tuple[float, object]:
@@ -908,6 +987,11 @@ def main(argv=None) -> int:
     drb_rows, k1_drb_err = drb_phases(engine, cp, batches, kind)
     kernels[0]["max_abs_err"] = max(k1_err, k1_drb_err)
     kernels += drb_rows
+    kernels.append(positional_phases(engine, cp, batches))
+    f1, f2 = cap_phases(engine, batches)
+    row = {k_["name"]: k_ for k_ in kernels}
+    row["drb_or"]["k_40000"] = f1
+    row["beam_loop"]["cap_1200000"] = f2
     log(json.dumps({"launches": counts,
                     "kernels": [k["name"] for k in kernels]}))
     log(json.dumps({"kernels": kernels}))
@@ -1485,9 +1569,9 @@ def drb_phases(engine, cp, batches, kind) -> tuple[list[dict], int]:
             nb, ops, lanes = or_bytes(idx, aux, wt, mt, cap, K,
                                       mname == "bm25")
             bms, by = bound_ms(nb, ops)
-            parts = {name: profile_device(one, 20, name)[0] for name in
-                     ("Memset", "drb_or_prep", "drb_or_gather",
-                      "drb_or_score")}
+            parts = {name: profile_device(one, 20, name, need=False)[0]
+                     for name in ("Memset", "drb_or_prep", "drb_or_gather",
+                                  "drb_or_score")}
             log(f"drb_or (or band {batches[i][1]}, {mname}) device ms by "
                 f"part: " + ", ".join(f"{k_} {v:.6f}"
                                       for k_, v in parts.items()))
@@ -1582,6 +1666,491 @@ def drb_phases(engine, cp, batches, kind) -> tuple[list[dict], int]:
                 "snippets_ms_per_call": snip_ms})
     del cands
     return out, k1_err
+
+
+# ---------------------------------------------------------------------------
+# positional search (phases 11-12)
+# ---------------------------------------------------------------------------
+
+def phrase_doc_rows(cp, occ_word, rng, n_rows: int, max_occ: int
+                    ) -> list[list[int]]:
+    """Rows of 2 or 3 consecutive words of random documents whose rarest
+    word occurs at most ``max_occ`` times: every row has a hit, and the
+    anchor scan stays bounded."""
+    out = []
+    while len(out) < n_rows:
+        d = cp.doc_tokens[rng.integers(0, cp.n_docs)]
+        n = 2 + len(out) % 2
+        i = rng.integers(0, len(d) - n + 1)
+        run = d[i:i + n]
+        if occ_word[run].min() <= max_occ:
+            out.append([int(x) for x in run])
+    return out
+
+
+def near_doc_rows(cp, occ_word, rng, n_rows: int, max_occ: int,
+                  span: int = 6) -> list[list[int]]:
+    """Rows of three words of one document within ``span`` tokens of each
+    other, each occurring at most ``max_occ`` times: every row has a
+    window of width <= span + 1."""
+    out = []
+    while len(out) < n_rows:
+        d = cp.doc_tokens[rng.integers(0, cp.n_docs)]
+        i = rng.integers(0, len(d) - span)
+        at = np.sort(rng.choice(np.arange(i, i + span + 1), 3, replace=False))
+        row = d[at]
+        if occ_word[row].max() <= max_occ:
+            out.append([int(x) for x in rng.permutation(row)])
+    return out
+
+
+class TokenIndex:
+    """The corpus's tokens on the host, for brute-force checks independent
+    of the program: the concatenated documents (no separators), each
+    document's start and end, and every word's positions (one stable sort,
+    so a word's positions ascend)."""
+
+    def __init__(self, cp):
+        self.flat = np.concatenate(cp.doc_tokens)
+        lens = np.array([len(t) for t in cp.doc_tokens], dtype=np.int64)
+        self.ends = np.cumsum(lens)
+        self.starts = self.ends - lens
+        self.n_docs = len(lens)
+        self.order = np.argsort(self.flat, kind="stable")
+        self.bounds = np.searchsorted(self.flat[self.order],
+                                      np.arange(cp.vocab_size + 1))
+
+    def positions(self, w: int) -> np.ndarray:
+        return self.order[self.bounds[w]:self.bounds[w + 1]]
+
+    def doc_of(self, i: np.ndarray) -> np.ndarray:
+        return np.searchsorted(self.ends, i, side="right")
+
+
+def phrase_bruteforce(tok: TokenIndex, words) -> tuple[np.ndarray, np.ndarray]:
+    """Per document the number of occurrences of the phrase ``words`` (word
+    ids, in order) and the doc-relative start of the first (-1 if none): a
+    shifted-array compare from the first word's positions, kept where the
+    phrase ends inside the document it starts in."""
+    n = len(words)
+    i = tok.positions(words[0])
+    for o in range(1, n):
+        i = i[i + o < len(tok.flat)]
+        i = i[tok.flat[i + o] == words[o]]
+    d = tok.doc_of(i)
+    keep = i + n <= tok.ends[d]
+    i, d = i[keep], d[keep]
+    tf = np.bincount(d, minlength=tok.n_docs)
+    first = np.full(tok.n_docs, -1, dtype=np.int64)
+    ud, at = np.unique(d, return_index=True)
+    first[ud] = i[at] - tok.starts[ud]
+    return tf, first
+
+
+def near_bruteforce(tok: TokenIndex, words):
+    """Per query word and document its tf, and per document the width and
+    doc-relative start of the smallest window holding every word (the
+    leftmost of equal widths; INT32_MAX / -1 where a word is missing), over
+    the documents that hold every word — at each occurrence the window
+    reaches back to the oldest of the words' last positions."""
+    N = tok.n_docs
+    pos = {w: tok.positions(w) for w in set(words)}
+    docs = {w: tok.doc_of(p) for w, p in pos.items()}
+    win = np.full(N, 2**31 - 1, dtype=np.int64)
+    start = np.full(N, -1, dtype=np.int64)
+    if any(len(p) == 0 for p in pos.values()):
+        return np.zeros((len(words), N), np.int64), win, start
+    tf = np.stack([np.bincount(docs[w], minlength=N) for w in words])
+    common = np.flatnonzero(np.all(tf > 0, 0))
+    for d in common:
+        local = [pos[w][docs[w] == d] - tok.starts[d] for w in pos]
+        P = np.unique(np.concatenate(local))
+        last = np.stack([np.where(np.searchsorted(x, P, side="right") > 0,
+                                  x[np.maximum(np.searchsorted(
+                                      x, P, side="right") - 1, 0)], -1)
+                         for x in local])
+        s = last.min(0)
+        width = np.where(s >= 0, P - s + 1, 2**62)
+        k = int(np.argmin(width))
+        win[d], start[d] = width[k], s[k]
+    return tf, win, start
+
+
+def locate_edge_lanes(idx, rng, per_level: int = 2048):
+    """(words, js) on the card whose select at its word's leaf level lands
+    on a block edge or one byte either side of it: per level, positions
+    around its block edges, each mapped to the word of that leaf level
+    whose occurrence it is (the byte's occurrence number there against the
+    words' base ranks)."""
+    import torch
+    from repro_torch.core import bytemap
+    dev = idx.device
+    cw = idx.cw.cpu().numpy().astype(np.int64)
+    lens = idx.cw_len.cpu().numpy()
+    base = idx.base_rank.cpu().numpy().astype(np.int64)
+    occ = idx.occ.cpu().numpy().astype(np.int64)
+    ws, js = [], []
+    for L, lv in enumerate(idx.levels):
+        if lv.length == 0:
+            continue
+        e = np.arange(0, lv.length + 1, lv.block)
+        p = np.unique(np.clip(np.concatenate([e - 1, e, e + 1]), 0,
+                              lv.length - 1))
+        p = rng.choice(p, min(per_level, len(p)), replace=False)
+        pt = torch.from_numpy(p.astype(np.int32)).to(dev)
+        byte = bytemap.access(lv, pt).long()
+        r = bytemap.rank(lv, byte.to(torch.int32), pt,
+                         kernel_backend="ref").cpu().numpy() + 1
+        byte = byte.cpu().numpy()
+        cand = np.flatnonzero((lens == L + 1) & (occ > 0))
+        key = cw[cand, L] << 32 | base[cand, L]
+        o = np.argsort(key)
+        cand, key = cand[o], key[o]
+        at = np.searchsorted(key, byte << 32 | (r - 1), side="right") - 1
+        ok = at >= 0
+        w = cand[np.maximum(at, 0)]
+        ok &= (cw[w, L] == byte) & (base[w, L] < r) & (r <= base[w, L] + occ[w])
+        ws.append(w[ok])
+        js.append((r - base[w, L])[ok])
+    return tuple(torch.from_numpy(np.concatenate(x).astype(np.int32)).to(dev)
+                 for x in (ws, js))
+
+
+def positional_phases(engine, cp, batches) -> dict:
+    """Phase 11: positional search (phrase, near, ``word_positions``) at
+    the smoke's size — the kernel against its plain version, the card
+    against a host brute force, as a user calls it with its launches, and
+    timings.  Returns the ``wtbc_locate`` row of the ``{"kernels": ...}``
+    line."""
+    import torch
+    from repro_torch.core import positional, wtbc
+    from repro_torch.kernels import backend
+    from repro_torch.kernels import wtbc_locate as locate_mod
+    dev = engine.device
+    idx = engine.idx
+    rank = engine.model.rank_of_word
+    occ_word = idx.occ.cpu().numpy()[rank]
+    measures = {m: engine._resolve_measure(m) for m in ("tfidf", "bm25")}
+    rng = np.random.default_rng(SEED + 11)
+
+    # ---- 11. positional search ------------------------------------------
+    # the heavy near row: three words of 50,000-400,000 occurrences each,
+    # 10^5-10^6 in all at full size (scaled with the tokens of a smaller
+    # run), so its locates and sweep take several passes
+    scale = min(1.0, idx.n / 55_000_000)
+    pool = np.flatnonzero((occ_word >= 50_000 * scale)
+                          & (occ_word <= 400_000 * scale))
+    while True:
+        heavy = [int(x) for x in rng.choice(pool, 3, replace=False)]
+        if 100_000 * scale <= int(occ_word[heavy].sum()) <= 1_000_000:
+            break
+    ii, iii = batches[0][2], batches[2][2]
+    near_rows = near_doc_rows(cp, occ_word, rng, B, 20_000)
+    pbatches = [
+        ("phrase", "doc", phrase_doc_rows(cp, occ_word, rng, B, 50_000),
+         None),
+        ("phrase", "ii", [list(map(int, r)) for r in ii], None),
+        ("phrase", "iii", [list(map(int, r)) for r in iii], None),
+        ("near", "doc", near_rows, 8),
+        ("near", "doc w64", near_rows, 64),
+        ("near", "ii", [list(map(int, r)) for r in ii], 8),
+        ("near", "iii w64", [list(map(int, r)) for r in iii], 64),
+        ("near", "heavy", [heavy] + [list(map(int, r)) for r in ii[1:]], 8),
+    ]
+    log(f"positional batches of B={B}, k={K}: " + "; ".join(
+        f"{m} {b}" + (f" window {w}" if w else "") for m, b, _, w in pbatches)
+        + f"; heavy near row {heavy} ({int(occ_word[heavy].sum())} "
+        "occurrences)")
+
+    def core(q, mode, window, mname, kb, **kw):
+        r, m_ = engine._encode_queries(q)
+        meas = measures[mname]
+        return positional.topk_positional_batch(
+            idx, torch.from_numpy(r).to(dev), torch.from_numpy(m_).to(dev),
+            engine._idf_table(meas), k=K, phrase=mode == "phrase",
+            measure=meas, window=window, avg_dl=engine._avg_doc_len(),
+            kernel_backend=kb, **kw)
+
+    # wtbc_locate against its plain version: random occurrences of 1-, 2-
+    # and 3-byte words, block edges of each level, j = 0 and occ + 1
+    occ = idx.occ.cpu().numpy()
+    lens = idx.cw_len.cpu().numpy()
+    w_rand = np.concatenate([rng.choice(np.flatnonzero((occ > 0) & (lens == L)),
+                                        2048) for L in (1, 2, 3)])
+    j_rand = 1 + rng.integers(0, 2**31 - 1, len(w_rand)) % occ[w_rand]
+    some = w_rand[::16]
+    loc_sets = [
+        ("random occurrences", *(torch.from_numpy(x.astype(np.int32)).to(dev)
+                                 for x in (w_rand, j_rand))),
+        ("block edges of each level", *locate_edge_lanes(idx, rng)),
+        ("j = 0 and occ + 1", *(torch.from_numpy(x.astype(np.int32)).to(dev)
+                                for x in (np.tile(some, 2), np.concatenate(
+                                    [np.zeros_like(some), occ[some] + 1]))))]
+    for name, w_, j_ in loc_sets:
+        got = wtbc.locate(idx, w_, j_)
+        want = wtbc.locate(idx, w_, j_, kernel_backend="ref")
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"wtbc_locate differs from its plain "
+              f"version on {name}")
+    log(f"wtbc_locate == plain on {len(loc_sets)} lane sets "
+        f"({sum(s[1].numel() for s in loc_sets)} lanes: "
+        + ", ".join(f"{s[0]} {s[1].numel()}" for s in loc_sets)
+        + "): bitwise")
+
+    # the card against the plain versions on the card, every leaf
+    names = ("docs", "scores", "n_found", "iters", "match_pos", "match_len")
+    for mode, band, q, window in pbatches:
+        for mname in measures:
+            got = core(q, mode, window, mname, "auto")
+            want = core(q, mode, window, mname, "ref")
+            torch.cuda.synchronize()
+            bad = leaves_equal(got, want, names)
+            check(not bad, f"positional {mode} {band} ({mname}) differs from "
+                  f"its plain version: {bad}")
+    log(f"positional == plain on {len(pbatches)} batches x tf-idf/BM25: "
+        "every leaf bitwise")
+
+    # the card's tables against a host brute force over the tokens
+    tok = TokenIndex(cp)
+    n_docs_hit = 0
+    for mode, band, q, window in pbatches:
+        if band.endswith("w64"):
+            continue                      # the same rows as another batch
+        r, m_ = engine._encode_queries(q)
+        wt, mt = torch.from_numpy(r).to(dev), torch.from_numpy(m_).to(dev)
+        if mode == "phrase":
+            tf, first, _ = positional.phrase_tables(idx, wt, mt)
+            tf, first = tf.cpu().numpy(), first.cpu().numpy()
+            for b, row in enumerate(q):
+                btf, bfirst = phrase_bruteforce(tok, row)
+                check(np.array_equal(tf[b], btf) and np.array_equal(
+                    first[b], bfirst), f"phrase {band} row {b} {row} "
+                    "differs from the brute force")
+                n_docs_hit += int(np.count_nonzero(btf))
+            if band == "doc":
+                check(bool((tf > 0).any(1).all()), "a phrase row of a "
+                      "document's words found no document")
+        else:
+            tf, win, pos, _ = positional.near_tables(idx, wt, mt)
+            tf, win, pos = (x.cpu().numpy() for x in (tf, win, pos))
+            for b, row in enumerate(q):
+                btf, bwin, bpos = near_bruteforce(tok, row)
+                check(np.array_equal(tf[b, :len(row)], btf)
+                      and np.array_equal(win[b], bwin)
+                      and np.array_equal(pos[b], bpos),
+                      f"near {band} row {b} {row} differs from the brute "
+                      "force")
+                n_docs_hit += int(np.count_nonzero(bwin < 2**31 - 1))
+    log(f"positional tables == host brute force over {len(tok.flat)} "
+        f"tokens (phrase: shifted compare; near: minimal cover on the "
+        f"documents holding every word): {n_docs_hit} documents with a "
+        "match")
+
+    # as a user calls it: launch counters reset, then search and
+    # word_positions through the facade
+    for mode, band, q, window in pbatches[:1] + pbatches[3:4]:
+        engine.warmup(q[:1], max_batch=B, k=K, mode=mode)
+    backend.reset_launch_counts()
+    pos_ms, per_batch, results = {}, {}, {}
+    for mode, band, q, window in pbatches:
+        for mname in measures:
+            kw = dict(window=window) if mode == "near" else {}
+            before = backend.launch_counts()
+            ms, res = wall_ms(lambda: engine.search(q, k=K, mode=mode,
+                                                    measure=mname, **kw))
+            after = backend.launch_counts()
+            key = f"{mname} {mode} {band}"
+            pos_ms[key] = ms
+            per_batch[key] = {k_: after[k_] - before[k_] for k_ in after
+                              if after[k_] != before[k_]}
+            results[key] = res
+            log(f"positional {key}: {ms:.2f} ms per batch of {B}; n_found "
+                f"{res.n_found.tolist()}; iters {res.work.tolist()}; "
+                f"launches {per_batch[key]}")
+    hits = results["bm25 phrase doc"]
+    n_wp = 0
+    for b in range(2):
+        for d, _, p, ln in hits.matches(b)[:3]:
+            wp = engine.word_positions(d, pbatches[0][2][b], cap=64)
+            toks = cp.doc_tokens[d]
+            for w, got in wp.items():
+                check(np.array_equal(got, np.flatnonzero(toks == w)[:64]),
+                      f"word_positions of {w} in doc {d} differ from the "
+                      "tokens")
+            check(all(toks[p + o] == w for o, w in
+                      enumerate(pbatches[0][2][b])) and ln == len(
+                          pbatches[0][2][b]), f"phrase match of doc {d} at "
+                  f"{p} is not the phrase")
+            n_wp += 1
+    pos_counts = backend.launch_counts()
+    log("positional path launches: " + json.dumps(pos_counts))
+    for name in ("wtbc_locate", "wtbc_decode", "wavelet_count"):
+        check(pos_counts[name] > 0, f"{name} never launched on the "
+              "positional path")
+    others = {k_: v for k_, v in pos_counts.items() if v and k_ not in (
+        "wtbc_locate", "wtbc_decode", "wavelet_count")}
+    check(not others, f"other kernels launched on the positional path: "
+          f"{others}")
+    check(n_wp > 0, "no phrase hit for word_positions")
+    for key, c in per_batch.items():
+        check(c.get("wtbc_locate", 0) >= 1 and set(c) <= {
+            "wtbc_locate", "wtbc_decode"}, f"positional {key} launches {c}")
+    for mode, band, q, window in pbatches:
+        for mname in measures:
+            res = results[f"{mname} {mode} {band}"]
+            want = core(q, mode, window, mname, "auto")
+            check(not leaves_equal(res, want, (
+                "docs", "scores", "n_found", "match_pos", "match_len")),
+                f"search({mode}) differs from its core on {band}")
+            check(tuple(res.docs.shape) == (B, K) and bool(torch.isfinite(
+                res.scores[res.n_found[:, None] > torch.arange(
+                    K, device=dev)]).all()), "positional result shape or "
+                "non-finite scores")
+    log(f"search(mode=phrase|near) == the core's batch; word_positions "
+        f"== tokens and phrase matches == the phrase on {n_wp} hits")
+
+    # ---- timings --------------------------------------------------------
+    for label in ("tfidf phrase doc", "bm25 near heavy"):
+        mode, band = label.split()[1], " ".join(label.split()[2:])
+        q, window = next((q, w) for m, b, q, w in pbatches
+                         if m == mode and b == band)
+        mname = label.split()[0]
+        kw = dict(window=window) if mode == "near" else {}
+
+        def search():
+            return engine.search(q, k=K, mode=mode, measure=mname, **kw)
+        busy, wall, top = device_breakdown(search, 3)
+        plain_wall = sum(wall_ms(search)[0] for _ in range(3)) / 3
+        log(f"positional {label}: device busy {busy:.4f} ms of {wall:.3f} "
+            f"ms wall per search, idle share {1 - busy / wall:.4f}; of "
+            f"{plain_wall:.3f} ms unprofiled, {1 - busy / plain_wall:.4f}; "
+            "device ms by kernel: " + "; ".join(
+                f"{k_[:60]} {v:.4f}" for k_, v in top))
+    # wtbc_locate at the lanes the positional path gives it
+    shapes = []
+    for label, mode, band in (("phrase doc anchors", "phrase", "doc"),
+                              ("near heavy pass", "near", "heavy")):
+        q, window = next((q, w) for m, b, q, w in pbatches
+                         if m == mode and b == band)
+        with OpsRecorder("wtbc_locate", lambda i, w, j, **kw: (w, j),
+                         module=locate_mod) as rec:
+            core(q, mode, window, "tfidf", "auto")
+        w_, j_ = rec.calls[0]
+        w_, j_ = w_.reshape(-1), j_.reshape(-1)
+
+        def loc(kb):
+            return wtbc.locate(idx, w_, j_, kernel_backend=kb)
+        call_ms = time_cuda(lambda: loc("auto"), reps=50, warm=5)
+        kms, _ = profile_device(lambda: loc("auto"), 20,
+                                "wtbc_locate_kernel")
+        pms = time_cuda(lambda: loc("ref"), reps=3, warm=1)
+        nb, ops, _ = locate_bytes(idx, w_, j_)
+        nb += 12 * w_.numel() + 31 * int(torch.unique(w_).numel())
+        bms, by = bound_ms(nb, ops)
+        shapes.append({"shape": f"M={w_.numel()} ({label})", "ms": kms,
+                       "wrapper_ms": call_ms, "plain_ms": pms,
+                       "bound_ms": bms, "bound_by": by})
+        log(f"wtbc_locate M={w_.numel()} ({label}): kernel {kms:.6f} ms on "
+            f"the device ({call_ms:.4f} ms per wrapper call), plain "
+            f"{pms:.4f} ms, bound {bms:.6f} ms ({by}: {nb} bytes, {ops} "
+            "compares)")
+    log("positional ms per batch: " + json.dumps(pos_ms))
+    main = shapes[0]
+    return {"name": "wtbc_locate", "route": "cuda",
+            "source": "src/repro_torch/csrc/wtbc_locate.cu",
+            "replaces": "src/repro/core/wtbc.py:292",
+            "replaces_note": "the reference's locate is plain jnp, not a "
+                             "Pallas kernel: the port's own launch",
+            "launches": pos_counts["wtbc_locate"], "max_abs_err": 0,
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None,
+            "library_note": "no PyTorch call locates in a WTBC",
+            "wrapper_ms": main["wrapper_ms"], "shapes": shapes,
+            "positional_ms_per_batch": pos_ms,
+            "positional_launches_per_batch": per_batch}
+
+
+
+def cap_phases(engine, batches) -> tuple[dict, dict]:
+    """Phase 12: DRB ``or`` past the old k cap of 32,768 (F1) and the mega
+    core past the old pool cap of about 1 M slots (F2), each against its
+    plain version on the card, every leaf bitwise, with their device
+    times beside the same batch at the default k and cap."""
+    import torch
+    from repro_torch.core import drb, mega
+    dev = engine.device
+    idx = engine.idx
+    measures = {m: engine._resolve_measure(m) for m in ("tfidf", "bm25")}
+    names = ("docs", "scores", "n_found", "iters", "pops", "overflowed",
+             "certified", "bound")
+    # ---- 12. F1: two rows of words in 46% to 99% of the documents (so
+    # with tf bitmaps; at full size more than 40,000 documents hit a row)
+    df_word = idx.df.cpu().numpy()[engine.model.rank_of_word]
+    pool = np.flatnonzero((df_word > 0.46 * idx.n_docs)
+                          & (df_word < 0.99 * idx.n_docs))
+    pool = pool[pool > 0]
+    rng = np.random.default_rng(SEED + 12)
+    rows = [[int(x) for x in rng.choice(pool, 3, replace=False)]
+            for _ in range(2)]
+    r, m_ = engine._encode_queries(rows)
+    wt, mt = torch.from_numpy(r).to(dev), torch.from_numpy(m_).to(dev)
+    cap = engine._df_cap(r, m_)
+    f1 = {"rows": rows, "k": 40_000}
+    for mname, meas in measures.items():
+        for k in (K, 40_000):
+            def one(kb="auto"):
+                return drb.topk_drb_or(
+                    idx, engine.aux, wt, mt, meas, k=k, max_df_cap=cap,
+                    idf=engine._idf_table(meas), avg_dl=engine._avg_doc_len(),
+                    kernel_backend=kb)
+            got = one()
+            if k > K:
+                want = one("ref")
+                torch.cuda.synchronize()
+                bad = leaves_equal(got, want, names)
+                check(not bad, f"drb_or at k = {k} differs from its plain "
+                      f"version ({mname}): {bad}")
+                check(int(got.n_found.min()) > min(32_768, idx.n_docs // 3),
+                      f"F1 rows found {got.n_found.tolist()} documents, not "
+                      "past 32,768")
+            parts = {name: profile_device(one, 5, name, need=False)[0]
+                     for name in ("drb_or_gather", "drb_or_score")}
+            total, _ = profile_device(one, 5)
+            f1[f"{mname} k={k}"] = {"ms": total, "parts_ms": parts,
+                                    "n_found": got.n_found.tolist()}
+            log(f"F1 drb_or ({mname}, k = {k}, n_found "
+                f"{got.n_found.tolist()}): {total:.6f} ms on the device; "
+                + ", ".join(f"{k_} {v:.6f}" for k_, v in parts.items()))
+    log("F1: drb_or at k = 40,000 == plain (tf-idf/BM25): every leaf "
+        "bitwise")
+
+    # ---- F2: the mega core at a pool of 1.2 M slots
+    big = 1_200_000
+    idf = engine._idf_table(measures["tfidf"])
+    f2 = {"cap": big}
+    for mode, band, q, budget in ((*batches[0], None), (*batches[3], 64)):
+        r, m_ = engine._encode_queries(q)
+        wt, mt = torch.from_numpy(r).to(dev), torch.from_numpy(m_).to(dev)
+        for c in (idx.n_docs + 2, big):
+            def run(kb="auto"):
+                return mega.topk_dr_mega(idx, wt, mt, idf, k=K,
+                                         conjunctive=mode == "and", cap=c,
+                                         max_pops=budget, kernel_backend=kb)
+            got = run()
+            if c == big:
+                want = run("ref")
+                torch.cuda.synchronize()
+                bad = leaves_equal(got, want, names)
+                check(not bad, f"beam_loop at cap {c} differs from its plain "
+                      f"loop ({mode} {band}, budget {budget}): {bad}")
+            kms, _ = profile_device(run, 3, "beam_loop_kernel")
+            f2[f"{mode} {band} budget {budget} cap={c}"] = kms
+            log(f"F2 beam_loop ({mode} {band}, budget {budget}, cap {c}): "
+                f"{kms:.6f} ms on the device; pops/row {got.pops.tolist()}")
+    log(f"F2: the mega core at cap {big} == its plain loop: every leaf "
+        "bitwise")
+    return f1, f2
 
 
 if __name__ == "__main__":

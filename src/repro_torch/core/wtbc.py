@@ -19,7 +19,8 @@ array (the paper's footnote-2 fast select), making document extents O(1).
 The build is the reference's numpy host build; the index is a frozen
 dataclass of tensors on one device plus host integers for scalars.
 ``locate``, ``decode_at`` and ``extract`` are batched over many positions
-(a whole decode is one ``wtbc_decode`` launch on the card).
+(a whole locate is one ``wtbc_locate`` launch on the card, a whole decode
+one ``wtbc_decode`` launch).
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ import torch
 
 from repro_torch.core import bytemap, scdc
 from repro_torch.core.bytemap import ByteMap
-from repro_torch.kernels import backend, ops, wtbc_decode
+from repro_torch.kernels import backend, ops, wtbc_decode, wtbc_locate
 
 MAX_LEVELS = scdc.MAX_CODE_LEN  # 3
 SEP_RANK = 0                    # '$' is frequency-rank 0 by construction
@@ -285,29 +286,19 @@ def count_doc(idx: WTBCIndex, w: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
 # locate / decode (paper §2.2)
 # ---------------------------------------------------------------------------
 
-def locate(idx: WTBCIndex, w: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
+def locate(idx: WTBCIndex, w: torch.Tensor, j: torch.Tensor, *,
+           kernel_backend: str = "auto") -> torch.Tensor:
     """Root position of the ``j[i]``-th (1-based) occurrence of word-rank
     ``w[i]``; same-shape int32.
 
-    Walks leaf -> root with one select per level, every lane at every level
-    (a lane whose codeword does not reach a level keeps its position), so
-    the work never waits on the data.  Out-of-range ``j`` is not checked (as
-    in the reference): each level's select saturates to its stream length,
-    so callers that cannot guarantee ``1 <= j <= occ[w]`` validate ``j``
-    themselves."""
-    shape = w.shape
-    w = w.reshape(-1).long()
-    j = j.reshape(-1).to(torch.int32)
-    pos = torch.zeros_like(j)
-    wlen = idx.cw_len[w]
-    for L in range(MAX_LEVELS - 1, -1, -1):
-        base = idx.base_rank[w, L]
-        # occurrence index within this level's byte stream (1-based)
-        occ_idx = torch.where(wlen == L + 1, base + j, base + pos + 1)
-        p = bytemap.select(idx.levels[L], idx.cw[w, L], occ_idx) \
-            - idx.node_off[w, L]
-        pos = torch.where(wlen > L, p, pos)
-    return pos.reshape(shape)
+    Walks leaf -> root with one select per level.  Out-of-range ``j`` is
+    not checked (as in the reference): each level's select saturates to its
+    stream length, so callers that cannot guarantee ``1 <= j <= occ[w]``
+    validate ``j`` themselves.  On the card every lane runs every level in
+    one ``wtbc_locate`` launch; on the CPU, or with
+    ``kernel_backend="ref"``, the plain batched walk runs
+    (``kernels/wtbc_locate.py``)."""
+    return wtbc_locate.wtbc_locate(idx, w, j, kernel_backend=kernel_backend)
 
 
 def decode_at(idx: WTBCIndex, pos: torch.Tensor, *,

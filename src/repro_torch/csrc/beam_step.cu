@@ -35,8 +35,12 @@
 //
 // Per-chunk summaries.  The row's slots fall in chunks of 256; a chunk's
 // summary is its lex-greatest live key (s, d0, d1, idx), its two lowest free
-// slots below cap and a bit per slot (set: free), kept in dynamic shared
-// memory (56 bytes a chunk, sized from cap at launch).  A per-row high-water
+// slots below cap and a bit per slot (set: free), 56 bytes a chunk.  They
+// are kept in dynamic shared memory, sized from cap at launch, while they
+// fit one block's opt-in (about 1 M slots on an H100); past it, in a
+// per-row region of a global scratch (the same layout; it stays in L2 and
+// the row's block alone touches it).  The two are one kernel body,
+// instantiated twice, so both keep every leaf bitwise.  A per-row high-water
 // mark hw (every slot >= hw is free) bounds the pop to the chunks that hold
 // slots [0, hw + 1], so the lowest two free slots — the holes below hw, then
 // hw, hw + 1 — are exact, and the pool stays slot for slot equal to the
@@ -72,7 +76,8 @@ constexpr int kChunk = 256;               // slots per summary
 constexpr int kSlotsPerLane = kChunk / 32;
 constexpr int kMaskWords = kChunk / 32;
 // s, d0, d1, idx, f1, f2 and the chunk's free-slot bit mask
-constexpr int kSummaryBytes = 24 + 4 * kMaskWords;
+constexpr int kSummaryInts = 6 + kMaskWords;
+constexpr int kSummaryBytes = 4 * kSummaryInts;
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Key {
@@ -112,8 +117,9 @@ __device__ __forceinline__ void warp_reduce(Key& best, int& f1, int& f2) {
   }
 }
 
-// The chunk summaries, structure of arrays in dynamic shared memory: the
-// best live key, the two lowest free slots, and a bit per slot (set: free).
+// The chunk summaries, structure of arrays (in dynamic shared memory, or in
+// the row's region of the global scratch): the best live key, the two
+// lowest free slots, and a bit per slot (set: free).
 struct Summaries {
   float* s;
   int *d0, *d1, *idx, *f1, *f2;
@@ -195,6 +201,9 @@ __device__ __forceinline__ void warp_summarise(const Summaries& sm, int ch,
   }
 }
 
+// kShared: the summaries in dynamic shared memory; else in the row's
+// kSummaryInts * n_chunks ints of `summaries`.
+template <bool kShared>
 __global__ void __launch_bounds__(kThreads)
 beam_loop_kernel(wtbc::Levels lv, wtbc::WordTables t,
                  const int32_t* __restrict__ sep_pos, int n, int n_docs,
@@ -206,7 +215,7 @@ beam_loop_kernel(wtbc::Levels lv, wtbc::WordTables t,
                  int32_t* out_docs, float* out_scores, int k, int32_t* n_out_g,
                  int32_t* iters_g, int32_t* pops_g, int32_t* ovf_g,
                  int32_t* status_g, int conjunctive, int max_pops,
-                 int max_trips) {
+                 int max_trips, int32_t* summaries) {
   const int row = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const size_t stride = (size_t)cap + 1;  // the scratch slot past cap
@@ -219,7 +228,9 @@ beam_loop_kernel(wtbc::Levels lv, wtbc::WordTables t,
   const int n_chunks = (cap + kChunk - 1) / kChunk;
 
   extern __shared__ int4 dyn[];
-  int* const dw = reinterpret_cast<int*>(dyn);
+  int* const dw =
+      kShared ? reinterpret_cast<int*>(dyn)
+              : summaries + (size_t)row * kSummaryInts * n_chunks;
   const Summaries sm = {reinterpret_cast<float*>(dw), dw + n_chunks,
                         dw + 2 * n_chunks, dw + 3 * n_chunks,
                         dw + 4 * n_chunks, dw + 5 * n_chunks,
@@ -462,28 +473,32 @@ extern "C" int beam_loop(const void* d0, const void* c0, int nb0, int len0,
                          void* out_scores, int k, void* n_out, void* iters,
                          void* pops, void* overflowed, void* status,
                          int conjunctive, int max_pops, int max_trips, int b,
-                         void* stream) {
-  if (q < 1 || q > kMaxQ || cap < 1)
+                         void* summaries, void* stream) {
+  if (q < 1 || q > kMaxQ || cap < 1 || summaries == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  // dynamic shared memory: the summaries, 56 bytes per chunk of 256 slots
+  // the summaries: 56 bytes per chunk of 256 slots, in dynamic shared memory
+  // while they fit the opt-in, else in the caller's scratch of
+  // b * kSummaryInts * n_chunks ints
   const size_t smem = (size_t)kSummaryBytes * ((cap + kChunk - 1) / kChunk);
   int dev = 0, optin = 0;
   cudaFuncAttributes attr;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  cudaFuncGetAttributes(&attr, beam_loop_kernel);
-  if (smem + attr.sharedSizeBytes > (size_t)optin)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        beam_loop_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+  cudaError_t e = cudaFuncGetAttributes(&attr, beam_loop_kernel<true>);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const bool in_shared = smem + attr.sharedSizeBytes <= (size_t)optin;
+  if (in_shared && smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(beam_loop_kernel<true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const wtbc::Levels lv = wtbc::make_levels(d0, c0, nb0, len0, d1, c1, nb1,
                                             len1, d2, c2, nb2, len2, block);
   const wtbc::WordTables t = wtbc::make_tables(cw, cw_len, node_off, base_rank);
-  beam_loop_kernel<<<b, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = in_shared ? beam_loop_kernel<true> : beam_loop_kernel<false>;
+  kernel<<<b, kThreads, in_shared ? smem : 0,
+           static_cast<cudaStream_t>(stream)>>>(
       lv, t, static_cast<const int32_t*>(sep_pos), n, n_docs,
       static_cast<const int32_t*>(words), static_cast<const int32_t*>(wmask),
       static_cast<const float*>(idf_w), q, static_cast<float*>(pool_s),
@@ -493,7 +508,7 @@ extern "C" int beam_loop(const void* d0, const void* c0, int nb0, int len0,
       static_cast<float*>(out_scores), k, static_cast<int32_t*>(n_out),
       static_cast<int32_t*>(iters), static_cast<int32_t*>(pops),
       static_cast<int32_t*>(overflowed), static_cast<int32_t*>(status),
-      conjunctive, max_pops, max_trips);
+      conjunctive, max_pops, max_trips, static_cast<int32_t*>(summaries));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -31,6 +31,8 @@ class EngineConfig:
                deployment pays no bitmap space; ``with_drb=False`` forbids
                the build, and with it BM25 and ``strategy="drb"`` queries.
     default_k: results per query when ``search`` is called without ``k``.
+    default_window: proximity width (tokens) when ``search(mode="near")`` is
+               called without ``window``.
     default_beam_width: frontier width P of the DR loop when ``search`` is
                called without ``beam_width``; P=1 is the classical one-pop
                Algorithm 1.
@@ -43,6 +45,7 @@ class EngineConfig:
     eps: float = 1e-6
     with_drb: bool = True
     default_k: int = 10
+    default_window: int = 8
     default_beam_width: int = 1
     default_mega: bool = False
     default_sla: str = "exact"
@@ -52,6 +55,9 @@ class EngineConfig:
             raise ValueError(f"block must be positive, got {self.block}")
         if self.default_k <= 0:
             raise ValueError(f"default_k must be positive, got {self.default_k}")
+        if self.default_window <= 0:
+            raise ValueError(f"default_window must be positive, got "
+                             f"{self.default_window}")
         if self.default_beam_width <= 0:
             raise ValueError(f"default_beam_width must be positive, got "
                              f"{self.default_beam_width}")

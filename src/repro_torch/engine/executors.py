@@ -10,14 +10,14 @@ from __future__ import annotations
 
 from typing import Any, NamedTuple
 
-from repro_torch.core import drb, mega, ranked
+from repro_torch.core import drb, mega, positional, ranked
 
 
 class ExecutorKey(NamedTuple):
     """Hashable cache key."""
     backend: str          # "single"
     strategy: str         # "dr" | "drb" (post-"auto" resolution)
-    mode: str             # "and" | "or"
+    mode: str             # "and" | "or" | "phrase" | "near"
     measure: Any          # frozen scoring dataclass
     k: int
     batch_shape: tuple[int, int]   # (B, Q)
@@ -62,4 +62,19 @@ def make_single_drb(key: ExecutorKey, *, note):
             return drb.topk_drb_or(idx, aux, words, wmask, measure, k=key.k,
                                    max_df_cap=key.df_cap, idf=idf,
                                    avg_dl=avg_dl)
+    return fn
+
+
+def make_single_positional(key: ExecutorKey, *, note):
+    """(idx, words, wmask, idf, window, avg_dl) -> PositionalResult with
+    (B, k) leaves.  ``window`` is a plain int (ignored by phrase), so
+    proximity widths share one executor."""
+    note()
+    phrase = key.mode == "phrase"
+    measure = key.measure
+
+    def fn(idx, words, wmask, idf, window, avg_dl):
+        return positional.topk_positional_batch(
+            idx, words, wmask, idf, k=key.k, phrase=phrase, measure=measure,
+            window=window, avg_dl=avg_dl)
     return fn

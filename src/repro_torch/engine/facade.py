@@ -1,9 +1,11 @@
-"""`SearchEngine` — the port's public query API (WTBC-DR and WTBC-DRB).
+"""`SearchEngine` — the port's public query API (WTBC-DR, WTBC-DRB and
+positional search).
 
     engine = SearchEngine.build(doc_tokens)                 # on the card
     engine = SearchEngine.build(doc_tokens, device="cpu")   # plain PyTorch
     res = engine.search([[w1, w2], [w3]], k=10, mode="and")
     res = engine.search([[w1, w2]], k=10, mode="or", measure="bm25")
+    res = engine.search([[w1, w2]], k=10, mode="near", window=8)
     print(res.hits(0), engine.snippets(res, length=8))
 
 The facade owns word-id -> frequency-rank mapping, ragged-query padding and
@@ -13,7 +15,8 @@ lazily built DRB tf bitmaps and their gather width, anytime budgets and SLA
 classes, snippet decoding, and an executor cache keyed like the reference's.
 ``and``/``or`` queries run on WTBC-DR (tf-idf: the heap core with
 ``beam_width`` or the mega core with ``mega=True``) or on WTBC-DRB (tf-idf or
-BM25).  Positional modes, ``word_positions``, sharding and the observability
+BM25); ``phrase``/``near`` queries and ``word_positions`` on the bare WTBC
+(``core/positional.py``, tf-idf or BM25).  Sharding and the observability
 registry raise ``NotImplementedError`` naming the ROADMAP slice that brings
 them.
 """
@@ -28,7 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch import convert
-from repro_torch.core import drb, scoring, wtbc
+from repro_torch.core import drb, positional, scoring, wtbc
 from repro_torch.engine import executors
 from repro_torch.engine.config import SLA_CLASSES, EngineConfig
 from repro_torch.engine.results import SearchResults
@@ -42,8 +45,6 @@ MEASURES = {"tfidf": scoring.TfIdf(), "bm25": scoring.BM25()}
 # cold-start pop cost (µs) assumed by the deadline -> budget conversion until
 # the engine has observed real traffic (see SearchEngine.us_per_pop)
 DEFAULT_US_PER_POP = 50.0
-
-_SLICE3 = "ROADMAP Queue 1, slice 3 (positional search)"
 
 
 def pow2_bucket(n: int) -> int:
@@ -287,10 +288,22 @@ class SearchEngine:
                 raise ValueError(f"measure object lacks .{attr}")
         return measure
 
-    def _resolve_strategy(self, strategy: str, measure) -> str:
+    def _resolve_strategy(self, strategy: str, measure, budget,
+                          mode: str) -> str:
         if strategy not in STRATEGIES:
             raise ValueError(f"unknown strategy {strategy!r}; expected one of "
                              f"{STRATEGIES}")
+        if mode in POSITIONAL_MODES:
+            # phrase/near run on the bare WTBC (locate/decode walks); DRB
+            # bitmaps carry no positions.  Any additive measure works:
+            # documents are fully materialized before scoring
+            if strategy == "drb":
+                raise ValueError(f"mode={mode!r} runs on the bare WTBC; use "
+                                 "strategy='dr' or 'auto'")
+            if budget is not None:
+                raise ValueError("budget (any-time max_pops) applies to the "
+                                 "and/or DR strategy only")
+            return "dr"
         if strategy == "auto":
             strategy = "dr" if measure.dr_compatible else "drb"
         if strategy == "dr":
@@ -353,7 +366,9 @@ class SearchEngine:
             def note():
                 with self._stats_lock:
                     self._trace_counts[key] = self._trace_counts.get(key, 0) + 1
-            if key.strategy == "dr":
+            if key.mode in POSITIONAL_MODES:
+                ex = executors.make_single_positional(key, note=note)
+            elif key.strategy == "dr":
                 ex = executors.make_single_dr(key, heap_cap=self._heap_cap,
                                               mega_cap=self._mega_cap,
                                               note=note)
@@ -405,11 +420,13 @@ class SearchEngine:
                beam_width: int | None = None,
                df_cap: int | None = None,
                mega: bool | None = None) -> SearchResults:
-        """Ranked top-k retrieval (the reference's contract, and/or).
+        """Ranked top-k retrieval (the reference's contract).
 
         queries:  (B, Q) / (Q,) array of word ids, or ragged lists of ids.
         k:        results per query (default ``config.default_k``).
-        mode:     "and" (conjunctive) or "or" (bag-of-words).
+        mode:     "and" (conjunctive), "or" (bag-of-words), "phrase" (the
+                  words consecutive, in order) or "near" (every word within
+                  a window of ``window`` tokens).
         strategy: "dr" (no extra space), "drb" (tf bitmaps) or "auto" (DR
                   for tf-idf, DRB for measures DR cannot rank, i.e. BM25).
         measure:  "tfidf" or "bm25" (DRB only; DR rejects it as in the
@@ -431,16 +448,19 @@ class SearchEngine:
                   raises instead of silently truncating.  DRB ``or`` only.
         mega:     run DR on the pool-frontier megabatch core (forces P=1);
                   normalized off on DRB.
-        window:   belongs to the positional modes (slice 3); rejected here.
+        window:   proximity width in tokens, ``mode="near"`` only (default
+                  ``config.default_window``).
+
+        Positional modes run on the bare WTBC under any measure: they take
+        no ``budget``, ``deadline_ms`` or ``beam_width``, reject
+        ``strategy="drb"``, cap ``k`` at the collection's size, and their
+        results carry ``match_pos`` / ``match_len``.
         """
         k = self.config.default_k if k is None else int(k)
         if k <= 0:
             raise ValueError(f"k must be positive, got {k}")
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
-        if mode in POSITIONAL_MODES:
-            raise NotImplementedError(f"mode={mode!r} (positional search) "
-                                      f"arrives with {_SLICE3}")
         if sla is not None and sla not in SLA_CLASSES:
             raise ValueError(f"unknown sla {sla!r}; expected one of "
                              f"{SLA_CLASSES}")
@@ -456,11 +476,20 @@ class SearchEngine:
             db = self.budget_for_deadline(deadline_ms)
             if db is not None:
                 budget = db if budget is None else min(int(budget), db)
-        if window is not None:
+        if mode == "near":
+            window = self.config.default_window if window is None \
+                else int(window)
+            if window < 1:
+                raise ValueError(f"window must be >= 1, got {window}")
+        elif window is not None:
             raise ValueError(f"window applies to mode='near' only "
                              f"(got mode={mode!r})")
         m = self._resolve_measure(measure)
-        strat = self._resolve_strategy(strategy, m)
+        if mode in POSITIONAL_MODES and deadline_ms is not None:
+            raise ValueError("deadline_ms applies to the anytime and/or "
+                             f"search cores only (got mode={mode!r}); "
+                             "positional searches are always exhaustive")
+        strat = self._resolve_strategy(strategy, m, budget, mode)
         if budget is not None:
             budget = int(budget)
             if budget < 1:
@@ -469,17 +498,23 @@ class SearchEngine:
                 budget = None   # loop-free gather: always complete/certified
             elif budget >= 2 * self.n_docs + 2:
                 budget = None   # can never bind: run the plain exact search
+        if mode in POSITIONAL_MODES:
+            if beam_width is not None:
+                raise ValueError("beam_width applies to the looped and/or "
+                                 f"search cores only (got mode={mode!r})")
+            # positional top-k ranks the whole document table
+            k = min(k, self.n_docs)
         if beam_width is None:
             beam_width = self.config.default_beam_width
         elif int(beam_width) < 1:
             raise ValueError(f"beam_width must be >= 1, got {beam_width}")
         beam_width = int(beam_width)
-        if strat == "drb" and mode == "or":
+        if mode in POSITIONAL_MODES or (strat == "drb" and mode == "or"):
             beam_width = 1      # no search loop: don't split the executor
         mega = self.config.default_mega if mega is None else bool(mega)
-        # the mega core covers DR only; elsewhere normalize it off (a
+        # the mega core covers DR and/or only; elsewhere normalize it off (a
         # serving profile may carry one flag across strategy routing)
-        mega = mega and strat == "dr"
+        mega = mega and strat == "dr" and mode in ("and", "or")
         if mega:
             beam_width = 1      # one pop per row: the batch dim IS the beam
         ranks, mask = self._encode_queries(queries)
@@ -505,6 +540,15 @@ class SearchEngine:
         dev = self.device
         words = torch.from_numpy(ranks).to(dev)
         wmask = torch.from_numpy(mask).to(dev)
+        if mode in POSITIONAL_MODES:
+            res = ex(self._idx, words, wmask, self._idf_table(m), window or 0,
+                     self._avg_doc_len())
+            return SearchResults(docs=res.docs, scores=res.scores,
+                                 n_found=res.n_found, work=res.iters, k=k,
+                                 mode=mode, strategy=strat, measure=m.name,
+                                 match_pos=res.match_pos,
+                                 match_len=res.match_len,
+                                 beam_width=beam_width, sla=sla)
         if strat == "dr":
             res = ex(self._idx, words, wmask, self._idf_table(m))
         else:
@@ -549,9 +593,29 @@ class SearchEngine:
             at += len(row)
         return out
 
-    def word_positions(self, doc: int, word_ids, cap: int = 32):
-        raise NotImplementedError(f"word_positions (core/positional.py) "
-                                  f"arrives with {_SLICE3}")
+    def word_positions(self, doc: int, word_ids,
+                       cap: int = 32) -> dict[int, np.ndarray]:
+        """Doc-relative occurrence positions of each word id inside document
+        ``doc`` (the first ``cap`` per word), extracted straight from the
+        compressed index — the hit-highlighting companion to
+        :meth:`snippets`.  Every word at once: on the card one
+        ``wavelet_count`` launch for the counts and one ``wtbc_locate``
+        launch for the positions."""
+        doc = int(doc)
+        if not 0 <= doc < self.n_docs:
+            raise ValueError(f"doc id {doc} outside [0, {self.n_docs})")
+        V = self.model.vocab_size
+        ids = [int(w) for w in word_ids]
+        for w in ids:
+            if not 1 <= w < V:
+                raise ValueError(f"word id {w} outside [1, {V})")
+        if not ids:
+            return {}
+        ranks = torch.from_numpy(self.model.rank_of_word[ids].astype(
+            np.int32)).to(self.device)
+        pos = positional.doc_positions(self._idx, ranks, doc,
+                                       cap=int(cap)).cpu().numpy()
+        return {w: p[p >= 0] for w, p in zip(ids, pos)}
 
     # -- introspection -------------------------------------------------------
 

@@ -25,6 +25,11 @@ class SearchResults:
     n_found: (B,)   int32 documents actually found per query.
     work:    (B,)   int32 loop trips per query row.
     k / mode / strategy / measure: the resolved query parameters.
+    match_pos / match_len: positional payloads of the "phrase" and "near"
+             modes only (None otherwise).  ``match_pos`` is the (B, k)
+             doc-relative token offset of the first phrase match / of the
+             minimal proximity window; ``match_len`` its width in tokens;
+             both -1 padded past ``n_found``.
     beam_width: the frontier width the executor ran with.
     pops:    (B,) int32 segments popped.
     overflowed: (B,) bool — a frontier dropped a push at capacity; the
@@ -44,6 +49,8 @@ class SearchResults:
     mode: str
     strategy: str
     measure: str
+    match_pos: torch.Tensor | None = None
+    match_len: torch.Tensor | None = None
     beam_width: int = 1
     pops: torch.Tensor | None = None
     overflowed: torch.Tensor | None = None
@@ -57,6 +64,10 @@ class SearchResults:
             raise ValueError(f"expected batched (B, k) results, got docs "
                              f"{tuple(self.docs.shape)} / scores "
                              f"{tuple(self.scores.shape)}")
+        for a in (self.match_pos, self.match_len):
+            if a is not None and a.shape != self.docs.shape:
+                raise ValueError(f"match payload shape {tuple(a.shape)} != "
+                                 f"docs shape {tuple(self.docs.shape)}")
 
     def __len__(self) -> int:
         return int(self.docs.shape[0])
@@ -67,6 +78,18 @@ class SearchResults:
         docs = _np(self.docs[b])[:n]
         scores = _np(self.scores[b])[:n]
         return [(int(d), float(s)) for d, s in zip(docs, scores)]
+
+    def matches(self, b: int = 0) -> list[tuple[int, float, int, int]]:
+        """Found ``(doc_id, score, match_pos, match_len)`` tuples of query
+        ``b``, best first — positional ("phrase" / "near") results only."""
+        if self.match_pos is None or self.match_len is None:
+            raise ValueError(f"mode={self.mode!r} results carry no match "
+                             "positions; use .hits() (positions exist for "
+                             "the 'phrase' and 'near' modes only)")
+        n = int(self.n_found[b])
+        return [(int(d), float(s), int(p), int(l)) for d, s, p, l in zip(
+            _np(self.docs[b])[:n], _np(self.scores[b])[:n],
+            _np(self.match_pos[b])[:n], _np(self.match_len[b])[:n])]
 
     def doc_ids(self) -> np.ndarray:
         """(B, k) numpy view of the document ids (-1 padded)."""

@@ -31,6 +31,10 @@ from repro_torch.kernels.wavelet_descent import level_args, table_args
 _TRIPS_PER_SYNC = 16
 # the kernel's limit on query words per row (its shared tf buffers)
 MAX_Q = 64
+# slots per chunk summary, and the ints of one summary (``csrc/beam_step.cu``:
+# kChunk, kSummaryInts)
+CHUNK = 256
+SUMMARY_INTS = 14
 
 
 class MegaState(NamedTuple):
@@ -109,9 +113,10 @@ def beam_loop(idx, st: MegaState, words, wmask, idf_w, *, k: int,
     CPU, or with ``kernel_backend="ref"``, the plain version runs.  The
     kernel reads the pool rows with their stride ``cap + 1`` and never
     touches the scratch column.  The kernel keeps a summary of every chunk
-    of 256 slots in shared memory (56 bytes each), so ``cap`` is bounded by
-    what one block can hold (about 1 M slots on an H100); past it the launch
-    is refused and this raises.
+    of 256 slots (56 bytes each) in shared memory while a row's fit one
+    block's opt-in (about 1 M slots on an H100) and past it in a global
+    scratch allocated here for every call, so any ``cap`` runs, with the
+    same results.
     Raises if a row hit the kernel's trip bound (2·n_docs + 4 trips, more
     than any exact search takes)."""
     if not backend.use_kernel(words, kernel_backend):
@@ -147,6 +152,8 @@ def beam_loop(idx, st: MegaState, words, wmask, idf_w, *, k: int,
     wmask_i = wmask.to(torch.int32).contiguous()
     ovf = pool.overflowed.to(torch.int32)
     status = torch.zeros(B, dtype=torch.int32, device=dev)
+    summaries = torch.empty(B * SUMMARY_INTS * -(-cap // CHUNK),
+                            dtype=torch.int32, device=dev)
     max_trips = 2 * idx.n_docs + 4
     with torch.cuda.device(dev):
         backend.BEAM_LOOP.launch(
@@ -157,7 +164,8 @@ def beam_loop(idx, st: MegaState, words, wmask, idf_w, *, k: int,
             st.out_docs.data_ptr(), st.out_scores.data_ptr(), k,
             st.n_out.data_ptr(), st.iters.data_ptr(), st.pops.data_ptr(),
             ovf.data_ptr(), status.data_ptr(), int(conjunctive),
-            -1 if max_pops is None else int(max_pops), max_trips, B)
+            -1 if max_pops is None else int(max_pops), max_trips, B,
+            summaries.data_ptr())
     pool.overflowed.copy_(ovf != 0)
     if bool(status.any()):
         raise RuntimeError("beam_loop: a row exceeded the trip bound; the "

@@ -29,8 +29,6 @@ from repro_torch.kernels import backend, ops
 from repro_torch.kernels.drb_walk import bitmap_args, scoring_args
 from repro_torch.kernels.wavelet_descent import level_args, table_args
 
-# the largest top-k the card takes (``k`` capped at the collection's size)
-MAX_K = 32768
 # documents per score block (``csrc/drb_or.cu``: kTile)
 TILE = 4096
 # query words of a row the score kernel keeps in shared memory
@@ -66,7 +64,8 @@ def drb_or_ref(idx, aux, words: torch.Tensor, wmask: torch.Tensor, measure,
     sel = sels[..., :-1]
     tf = torch.where(js + 1 < df_w[..., None], sels[..., 1:],
                      occ_w[..., None]) - sel
-    first = wtbc.locate(idx, wl[..., None].expand(B, Q, cap), sel + 1)
+    first = wtbc.locate(idx, wl[..., None].expand(B, Q, cap), sel + 1,
+                        kernel_backend="ref")
     d = torch.where(live, wtbc.doc_of_pos(idx, first), N)          # N: drop
     tf = torch.where(live, tf, 0)
     table = torch.zeros((B, Q, N + 1), dtype=torch.int32, device=dev)
@@ -113,8 +112,9 @@ def launch_args(idx, aux, words: torch.Tensor, wmask: torch.Tensor, measure,
     """The kernels' arguments up to ``k``, each checked for what the device
     code assumes (tensors on the batch's device, so the checks run on the
     CPU too): 1 <= B <= 65535 rows, 1 <= Q <= 1024 words, int32 words and a
-    bool mask, ``max_df_cap >= 0``, ``1 <= min(k, n_docs) <= 32768``, and
-    the index's and bitmaps' layouts.  Raises ValueError on the first that
+    bool mask, ``max_df_cap >= 0``, ``k >= 1`` (any k: a tile keeps at
+    most its 4,096 documents' keys), and the index's and bitmaps'
+    layouts.  Raises ValueError on the first that
     fails."""
     B, Q = words.shape
     N = idx.n_docs
@@ -123,8 +123,7 @@ def launch_args(idx, aux, words: torch.Tensor, wmask: torch.Tensor, measure,
     _require(1 <= B <= 65535 and 1 <= Q <= MAX_Q,
              f"needs 1 <= B <= 65535 and 1 <= Q <= {MAX_Q} (got B={B}, "
              f"Q={Q})")
-    _require(k >= 1 and min(k, N) <= MAX_K,
-             f"k={k} must be >= 1 with min(k, n_docs) <= {MAX_K}")
+    _require(k >= 1, f"k={k} must be >= 1")
     _require(cap >= 0, f"max_df_cap={cap} must be >= 0")
     _require(N >= 1 and idx.device == dev,
              "the index must hold documents and lie on the batch's device")

@@ -136,7 +136,8 @@ def drb_and_trip(idx, aux, qt: DRBQuery, st: DRBState, measure, *, k: int,
     js = p[row, qstar][:, None] + 1 + lanes                     # (B, P)
     valid_j = js <= occ_star[:, None]
     jc = torch.minimum(js, occ_star.clamp(min=1)[:, None])
-    pos_j = wtbc.locate(idx, wstar[:, None].expand(B, P), jc)
+    pos_j = wtbc.locate(idx, wstar[:, None].expand(B, P), jc,
+                        kernel_backend=kernel_backend)
     d_j = wtbc.doc_of_pos(idx, pos_j)
     prev = torch.cat([torch.full((B, 1), -1, dtype=torch.int32,
                                  device=dev), d_j[:, :-1]], 1)

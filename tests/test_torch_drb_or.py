@@ -235,12 +235,18 @@ def test_drb_or_argument_checks_raise():
     wide = torch.zeros((1, drb_or.MAX_Q + 1), dtype=torch.int32)
     with pytest.raises(ValueError, match="Q <= 1024"):
         drb_or.launch_args(pidx, paux, wide, wide.bool(), tfidf, **ok)
-    # k past the card's cap where the collection is larger than the cap
+    # any k >= 1: past the old 32,768 cap where the collection is larger
     import dataclasses
-    big = dataclasses.replace(pidx, n_docs=drb_or.MAX_K + 10)
-    with pytest.raises(ValueError, match="min\\(k, n_docs\\) <= 32768"):
-        drb_or.launch_args(big, paux, wt, mt, tfidf,
-                           **dict(ok, k=drb_or.MAX_K + 1))
+    with pytest.raises(ValueError, match="k=0 must be >= 1"):
+        drb_or.launch_args(pidx, paux, wt, mt, tfidf, **dict(ok, k=0))
+    big = dataclasses.replace(
+        pidx, n_docs=50_000, sep_pos=torch.zeros(50_000, dtype=torch.int32),
+        doc_len=torch.zeros(50_000, dtype=torch.int32))
+    for k in (32_769, 40_000):
+        args = drb_or.launch_args(big, paux, wt, mt, tfidf, **dict(ok, k=k))
+        assert args[-1] == k and args[19] == 50_000
+        assert drb_or.scratch_ints(2, 4, 50_000, k) == drb_or.scratch_ints(
+            2, 4, 50_000, drb_or.TILE)
     aux_bad = drb.DRBAux(bitvec.BitVec(paux.bv.words.long(), paux.bv.counts,
                                        paux.bv.n_bits), paux.bit_off,
                          paux.has_bm, paux.eps)

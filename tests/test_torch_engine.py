@@ -220,11 +220,11 @@ def test_dr_bm25_raises_the_reference_error(engine, port_engine, query_batch):
 
 
 def test_later_slices_raise_not_implemented(port_engine, query_batch):
+    # positional search and word_positions are here now
     for kw in (dict(mode="phrase"), dict(mode="near")):
-        with pytest.raises(NotImplementedError, match="slice 3"):
-            port_engine.search(query_batch, k=5, **kw)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        port_engine.word_positions(0, [1])
+        res = port_engine.search(query_batch, k=5, **kw)
+        assert res.match_pos.shape == res.docs.shape
+    assert set(port_engine.word_positions(0, [1])) == {1}
     with pytest.raises(NotImplementedError, match="slice 5"):
         SearchEngine.shard([[1, 2]], 2)
     with pytest.raises(NotImplementedError, match="slice 4"):
