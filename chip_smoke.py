@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""On-card smoke run of the PyTorch/CUDA port (WTBC-DR, WTBC-DRB and
-positional search).
+"""On-card smoke run of the PyTorch/CUDA port (WTBC-DR, WTBC-DRB,
+positional search and the serving stack).
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -106,6 +106,29 @@ nothing falls back to the CPU):
    batch and the ``or`` iii batch at 64 pops, each against its plain
    version on the card, every leaf bitwise; device times beside k = 10
    and the default cap.
+13. serving — the engine saved as a snapshot and loaded back onto the card
+   (every index, tf-bitmap and model array bitwise; save and load seconds,
+   bytes on disk and on the device).  On the loaded engine, one
+   ``SearchServer`` with metrics on per profile: warmup, then
+   ``loadgen.closed_loop`` (8 workers, 256 requests over 64 distinct
+   Zipf-repeated 3-word queries, ``max_batch=8``) under DR ``or`` on the
+   heap core at a 50 ms deadline (first: the us/pop estimator learns the
+   heap core's cost from its own warmup), DR ``or`` and ``and`` on the
+   mega core, DRB ``or`` BM25 (the default BM25 route), DRB ``and`` tf-idf
+   and phrase over ``loadgen.sample_ngram_queries``; then one
+   ``open_loop`` on the mega ``or`` profile at half its closed loop's QPS.
+   Each load: no shed, error or timeout; no executor built after warmup
+   (at most 4 at the deadline); every distinct query's served row bitwise
+   equal to a direct search under the same effective profile; launches
+   per served batch equal a direct batch's (mega K1 + K2, one
+   ``drb_or`` / ``drb_walk``, one ``wtbc_locate`` + ``wtbc_decode`` per
+   phrase pass); p50/p95/p99, QPS, mean batch, cache hit rate, the
+   registry's stage shares, the live ``repro_roofline_achieved_frac``
+   and the device's idle share over a closed loop without cache.  Then
+   ``python -m repro_torch.launch.serve --docs 2000 --requests 200
+   --max-batch 8 --smoke --snapshot-dir D --save-snapshot``, and again
+   from ``D`` alone: both print ``smoke: PASS``, the second without a
+   build.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -992,6 +1015,13 @@ def main(argv=None) -> int:
     row = {k_["name"]: k_ for k_ in kernels}
     row["drb_or"]["k_40000"] = f1
     row["beam_loop"]["cap_1200000"] = f2
+    serving = serving_phase(engine)
+    for k_ in kernels:
+        k_["served_launches_per_batch"] = {
+            name: p["launches_per_batch"][k_["name"]]
+            for name, p in serving["profiles"].items()
+            if k_["name"] in p["launches_per_batch"]}
+    log(json.dumps({"serving": serving}))
     log(json.dumps({"launches": counts,
                     "kernels": [k["name"] for k in kernels]}))
     log(json.dumps({"kernels": kernels}))
@@ -2151,6 +2181,289 @@ def cap_phases(engine, batches) -> tuple[dict, dict]:
     log(f"F2: the mega core at cap {big} == its plain loop: every leaf "
         "bitwise")
     return f1, f2
+
+
+# ---------------------------------------------------------------------------
+# serving (phase 13)
+# ---------------------------------------------------------------------------
+
+SERVE_DISTINCT, SERVE_REQUESTS, SERVE_WORKERS, SERVE_BATCH = 64, 256, 8, 8
+DEADLINE_MS = 50.0
+SNAPSHOT_LEAVES = ("cw", "cw_len", "node_off", "base_rank", "sep_pos", "df",
+                   "occ", "doc_len")
+
+
+def engine_arrays(eng) -> list[tuple[str, object]]:
+    """Every index, tf-bitmap and model array of an engine, and its host
+    integers, by name."""
+    idx, aux = eng.idx, eng.aux
+    out = []
+    for i, lv in enumerate(idx.levels):
+        out += [(f"levels[{i}].data", lv.data), (f"levels[{i}].counts",
+                                                 lv.counts),
+                (f"levels[{i}].length", lv.length),
+                (f"levels[{i}].block", lv.block), (f"offsets[{i}]",
+                                                   idx.offsets[i])]
+    out += [(f, getattr(idx, f)) for f in SNAPSHOT_LEAVES]
+    out += [("n", idx.n), ("n_docs", idx.n_docs), ("s", idx.s), ("c", idx.c),
+            ("bv.words", aux.bv.words), ("bv.counts", aux.bv.counts),
+            ("bv.n_bits", aux.bv.n_bits), ("bit_off", aux.bit_off),
+            ("has_bm", aux.has_bm), ("eps", aux.eps)]
+    out += [(f"model.{f}", getattr(eng.model, f)) for f in
+            ("codes", "lens", "rank_of_word", "word_of_rank", "freqs")]
+    return out
+
+
+def same_value(a, b) -> bool:
+    import torch
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype \
+            and a.device == b.device and torch.equal(a, b)
+    if isinstance(a, np.ndarray):
+        return isinstance(b, np.ndarray) and a.dtype == b.dtype \
+            and np.array_equal(a, b)
+    return type(a) is type(b) and a == b
+
+
+ROW_LEAVES = ("docs", "scores", "certified", "match_pos", "match_len")
+ROW_SCALARS = ("n_found", "work", "pops", "overflowed", "padded",
+               "score_bound")
+
+
+def row_differs(row, res, b: int) -> list[str]:
+    """Leaves of a served row that differ from row ``b`` of a direct
+    search's results (bitwise)."""
+    bad = []
+    for name in ROW_LEAVES:
+        got, want = getattr(row, name), getattr(res, name)
+        if (got is None) != (want is None) or (
+                want is not None and not np.array_equal(
+                    got, want[b].cpu().numpy())):
+            bad.append(name)
+    for name in ROW_SCALARS:
+        got, want = getattr(row, name), getattr(res, name)
+        if (got is None) != (want is None) or (
+                want is not None and got != want[b].item()):
+            bad.append(name)
+    return bad
+
+
+def serve_profiles(eng, queries, ngrams):
+    """(name, profile, distinct queries) of phase 13, the deadline profile
+    first: it runs on the heap core, whose cost the us/pop estimator learns
+    from its own exhaustive warmup batches."""
+    from repro_torch.serve import QueryProfile
+    return [
+        ("dr-or-heap-deadline", QueryProfile(mode="or", k=K,
+                                             deadline_ms=DEADLINE_MS,
+                                             sla="bounded"), queries),
+        ("dr-or-mega", QueryProfile(mode="or", k=K, mega=True), queries),
+        ("dr-and-mega", QueryProfile(mode="and", k=K, mega=True), queries),
+        ("drb-or-bm25", QueryProfile(mode="or", measure="bm25", k=K,
+                                     df_cap=eng.suggested_df_cap(queries)),
+         queries),
+        ("drb-and-tfidf", QueryProfile(mode="and", strategy="drb", k=K),
+         queries),
+        ("phrase-tfidf", QueryProfile(mode="phrase", k=K), ngrams),
+    ]
+
+
+def serve_one(eng, name, profile, distinct, *, device: str, open_qps=None
+              ) -> dict:
+    """One profile through a fresh ``SearchServer`` with metrics on: warmup,
+    then a closed loop (or an open loop at ``open_qps``), every distinct
+    query's served row against a direct search, launches per served batch
+    against a direct batch's, and the device's busy share over a closed
+    loop without cache."""
+    import torch
+    import repro_torch.obs as obs
+    from repro_torch.kernels import backend
+    from repro_torch.serve import SearchServer, loadgen
+
+    reg = obs.Registry(enabled=True)
+    server = SearchServer(eng, max_batch=SERVE_BATCH, registry=reg)
+    server.warmup(distinct, profile)
+    traces0 = sum(eng.stats["traces"].values())
+    workload = loadgen.zipf_workload(distinct, SERVE_REQUESTS, seed=SEED)
+    before = backend.launch_counts()
+    with server:
+        if open_qps is None:
+            rep = loadgen.closed_loop(server, workload,
+                                      n_workers=SERVE_WORKERS,
+                                      profile=profile)
+        else:
+            rep = loadgen.open_loop(server, workload, target_qps=open_qps,
+                                    profile=profile, seed=SEED)
+        after = backend.launch_counts()
+        dispatches = server.stats["dispatches"]
+        built = sum(eng.stats["traces"].values()) - traces0
+        tickets = [server.submit(q, profile) for q in distinct]
+        rows = [t.result(120.0) for t in tickets]
+    st = rep.server_stats
+    check(rep.n_shed == 0 and rep.n_err == 0 and rep.n_timeout == 0
+          and rep.n_ok == SERVE_REQUESTS,
+          f"{name}: {rep.n_ok} ok, {rep.n_shed} shed, {rep.n_err} errors, "
+          f"{rep.n_timeout} timeouts of {SERVE_REQUESTS}")
+    check(built <= (4 if profile.deadline_ms is not None else 0),
+          f"{name}: {built} executors built after warmup")
+
+    # every distinct query's served row == a direct search of the same query
+    # under the same effective profile (the port's results are bitwise
+    # equal across batch shapes, so the direct searches go 8 at a time)
+    groups = {}
+    for q, t, row in zip(distinct, tickets, rows):
+        groups.setdefault(t.profile, []).append((q, row))
+    budgets = sorted({str(p.budget) for p in groups})
+    for eff, items in groups.items():
+        for at in range(0, len(items), SERVE_BATCH):
+            chunk = items[at:at + SERVE_BATCH]
+            res = eng.search([q for q, _ in chunk], **eff.search_kwargs())
+            for b, (q, row) in enumerate(chunk):
+                bad = row_differs(row, res, b)
+                check(not bad, f"{name}: served row of {q} differs from "
+                      f"direct search on {bad}")
+
+    # launches per served batch == a direct batch's
+    loop = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+    eff = tickets[0].profile
+    b0 = backend.launch_counts()
+    eng.search(distinct[:SERVE_BATCH], **eff.search_kwargs())
+    direct = {k: v - b0[k] for k, v in backend.launch_counts().items()
+              if v > b0[k]}
+    check(dispatches > 0, f"{name}: no batch was dispatched")
+    if device == "cuda":          # the plain versions launch nothing
+        check(set(loop) == set(direct) and loop,
+              f"{name}: served batches launched {loop} in {dispatches} "
+              f"batches, a direct batch {direct}")
+        if name == "phrase-tfidf":
+            check(loop["wtbc_locate"] == loop["wtbc_decode"] >= dispatches,
+                  f"{name}: {loop} in {dispatches} batches (one wtbc_locate "
+                  "and one wtbc_decode per pass)")
+        elif "heap" not in name:
+            check(all(loop[k] == dispatches * direct[k] for k in loop),
+                  f"{name}: {loop} in {dispatches} batches, a direct batch "
+                  f"{direct}")
+    per_batch = {k: v / dispatches for k, v in loop.items()}
+
+    # the device's busy share over one closed loop of a server without
+    # cache (every request dispatched), the server's start and stop outside
+    def busy_loop(srv):
+        r = loadgen.closed_loop(srv, distinct[:32], n_workers=SERVE_WORKERS,
+                                profile=profile)
+        check(r.n_ok == 32, f"{name}: busy loop served {r.n_ok} of 32")
+    busy_ms, wall = 0.0, float("nan")
+    with SearchServer(eng, max_batch=SERVE_BATCH, cache_size=0) as srv:
+        if device == "cuda":
+            busy_ms, wall = profile_device(lambda: busy_loop(srv), 1)
+    stages = rep.stages or {}
+    # shares of a dispatched request's time (cache hits have no stages)
+    parts = ("queue_wait", "device", "slice")
+    total = sum(stages[k]["mean_ms"] for k in parts if k in stages)
+    frac = [g.value for g in reg.find("repro_roofline_achieved_frac")]
+    out = {"p50_ms": rep.p50_ms, "p95_ms": rep.p95_ms, "p99_ms": rep.p99_ms,
+           "qps": rep.qps, "n_ok": rep.n_ok, "duration_s": rep.duration_s,
+           "mean_batch": st["mean_batch"], "batch_hist": st["batch_hist"],
+           "cache_hit_rate": st["cache"]["hit_rate"],
+           "dispatches": dispatches, "executors_after_warmup": built,
+           "budgets": budgets, "degraded": rep.n_degraded,
+           "certified_fraction": rep.certified_fraction,
+           "stages_ms": {k: {m: v[m] for m in ("p50_ms", "p99_ms",
+                                               "mean_ms")}
+                         for k, v in stages.items()},
+           "stage_share": {k: stages[k]["mean_ms"] / total for k in parts
+                           if k in stages},
+           "roofline_achieved_frac": frac[0] if frac else None,
+           "launches": loop, "launches_per_batch": per_batch,
+           "busy_loop_device_ms": busy_ms, "busy_loop_wall_ms": wall,
+           "idle_share": 1.0 - busy_ms / wall if wall == wall else None}
+    log(f"serve {name}{'' if open_qps is None else f' open {open_qps:.0f}'}"
+        f": {rep.summary()} | mean batch {st['mean_batch']:.2f}, cache hit "
+        f"rate {st['cache']['hit_rate']:.3f}, budgets {budgets}, launches "
+        f"per batch {per_batch}, stage shares "
+        + json.dumps({k: round(v, 4) for k, v in out['stage_share'].items()})
+        + f", roofline {out['roofline_achieved_frac']}, idle share "
+        f"{out['idle_share']}")
+    return out
+
+
+def serving_phase(engine, device: str = "cuda") -> dict:
+    """Phase 13: the engine saved as a snapshot and loaded back onto the
+    card (every array bitwise), served through ``SearchServer`` under six
+    profiles and an open loop, then the CLI booted twice (build + save,
+    then from the snapshot)."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.serve import loadgen, snapshot
+
+    tmp = Path(tempfile.mkdtemp(prefix="wtbc-serve-"))
+    try:
+        # ---- 13a. snapshot round trip
+        t0 = time.perf_counter()
+        path = snapshot.save(engine, tmp / "snap")
+        t_save = time.perf_counter() - t0
+        disk = sum(p.stat().st_size for p in path.iterdir())
+        t0 = time.perf_counter()
+        eng = snapshot.load(tmp / "snap", device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        live, loaded = engine_arrays(engine), engine_arrays(eng)
+        bad = [n for (n, a), (_, b) in zip(live, loaded)
+               if not same_value(a, b)]
+        check(not bad, f"snapshot round trip differs on {bad}")
+        on_card = eng.space_report()["total"]
+        snap = {"save_s": t_save, "load_s": t_load, "disk_bytes": disk,
+                "device_bytes": on_card, "leaves": len(live)}
+        log(f"snapshot: saved in {t_save:.3f} s ({disk} bytes on disk), "
+            f"loaded onto {eng.device} in {t_load:.3f} s ({on_card} bytes on "
+            f"the device); {len(live)} arrays and integers bitwise equal")
+
+        # ---- 13b. the server under six profiles and an open loop
+        queries = loadgen.sample_queries(eng, SERVE_DISTINCT, 3, seed=SEED)
+        ngrams = loadgen.sample_ngram_queries(eng, SERVE_DISTINCT, 3,
+                                              seed=SEED)
+        profiles = {}
+        for name, profile, distinct in serve_profiles(eng, queries, ngrams):
+            profiles[name] = serve_one(eng, name, profile, distinct,
+                                       device=device)
+        mega_or = serve_profiles(eng, queries, ngrams)[1]
+        qps = profiles[mega_or[0]]["qps"] / 2
+        profiles["dr-or-mega-open"] = serve_one(
+            eng, "dr-or-mega-open", mega_or[1], queries, device=device,
+            open_qps=qps)
+        profiles["dr-or-mega-open"]["target_qps"] = qps
+
+        # ---- 13c. the CLI: build + save, then boot from the snapshot
+        cli = {}
+        env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve()
+                                              .parent / "src"))
+        base = [sys.executable, "-m", "repro_torch.launch.serve",
+                "--device", device, "--requests", "200", "--max-batch", "8",
+                "--smoke", "--snapshot-dir", str(tmp / "cli")]
+        for label, extra in (("build", ["--docs", "2000", "--save-snapshot"]),
+                             ("boot", [])):
+            t0 = time.perf_counter()
+            r = subprocess.run(base + extra, capture_output=True, text=True,
+                               env=env, timeout=400,
+                               cwd=Path(__file__).resolve().parent)
+            secs = time.perf_counter() - t0
+            tail = (r.stdout + r.stderr)[-3000:]
+            check(r.returncode == 0 and "smoke: PASS" in r.stdout,
+                  f"CLI {label} run failed (exit {r.returncode}):\n{tail}")
+            built = "building corpus" in r.stdout
+            check(built == (label == "build"),
+                  f"CLI {label} run {'built' if built else 'did not build'} "
+                  f"an index:\n{tail}")
+            summary = [ln for ln in r.stdout.splitlines()
+                       if " ok / " in ln or ln.startswith("batch sizes")]
+            cli[label] = {"s": secs, "summary": summary}
+            log(f"CLI {label}: smoke: PASS in {secs:.1f} s; "
+                + " | ".join(summary))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"snapshot": snap, "profiles": profiles, "cli": cli}
 
 
 if __name__ == "__main__":

@@ -1,11 +1,13 @@
 """repro_torch — the PyTorch/CUDA port of the WTBC ranked-retrieval system.
 
-Slice 1 answers WTBC-DR tf-idf ``and``/``or`` searches on one NVIDIA H100:
-the host builds the index (numpy), the search cores run as PyTorch tensor
-code, and the two kernels of the path — the fused wavelet-tree count descent
-and the mega core's search loop — are hand-written CUDA C++ (``csrc/``).
-Entry points run on the card unless the caller asks for the CPU, where every
-kernel runs its plain PyTorch version.
+It answers WTBC-DR and WTBC-DRB ``and``/``or`` searches (tf-idf and BM25)
+and ``phrase``/``near`` searches on one NVIDIA H100, and serves them
+(``repro_torch.serve``: snapshots, micro-batching, cache, load generation;
+``repro_torch.obs``: metrics and request spans).  The host builds the index
+(numpy), the search cores run as PyTorch tensor code, and every kernel of
+their paths is hand-written CUDA C++ (``csrc/``).  Entry points run on the
+card unless the caller asks for the CPU, where every kernel runs its plain
+PyTorch version.
 
     from repro_torch.engine import SearchEngine
     engine = SearchEngine.build(doc_tokens)              # device="cuda"

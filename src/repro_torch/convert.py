@@ -18,6 +18,8 @@ never needs ``repro`` itself:
 """
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 import torch
 
@@ -29,9 +31,17 @@ from repro_torch.core.wtbc import WTBCIndex
 
 
 def _t(a, dtype, device) -> torch.Tensor:
-    # np.array copies: the source may be a read-only view of another
-    # framework's buffer
-    return torch.from_numpy(np.array(a, dtype=dtype)).to(device)
+    arr = np.asarray(a, dtype=dtype)
+    if torch.device(device).type == "cuda" and arr.flags.c_contiguous:
+        # one host -> device copy straight from the source buffer, which may
+        # be read-only (a memory-mapped snapshot leaf, another framework's
+        # array): only the card's copy is ever written to
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", "The given NumPy array is not "
+                                    "writable")
+            return torch.from_numpy(arr).to(device)
+    # np.array copies: a CPU tensor must not alias a read-only buffer
+    return torch.from_numpy(np.array(arr)).to(device)
 
 
 def from_reference(index_arrays: dict, model_arrays: dict, *,
@@ -81,8 +91,8 @@ def aux_from_reference(aux_arrays: dict, *, device) -> DRBAux:
     reference's field names (module docstring); the uint32 bitmap words
     are kept as int32 bit patterns."""
     a = aux_arrays
-    words = np.array(a["words"], dtype=np.uint32).view(np.int32)
-    bv = BitVec(words=torch.from_numpy(words).to(device),
+    words = np.asarray(a["words"], dtype=np.uint32).view(np.int32)
+    bv = BitVec(words=_t(words, np.int32, device),
                 counts=_t(a["counts"], np.int32, device),
                 n_bits=int(a["n_bits"]))
     return DRBAux(bv=bv, bit_off=_t(a["bit_off"], np.int32, device),

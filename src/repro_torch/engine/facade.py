@@ -16,21 +16,24 @@ classes, snippet decoding, and an executor cache keyed like the reference's.
 ``and``/``or`` queries run on WTBC-DR (tf-idf: the heap core with
 ``beam_width`` or the mega core with ``mega=True``) or on WTBC-DRB (tf-idf or
 BM25); ``phrase``/``near`` queries and ``word_positions`` on the bare WTBC
-(``core/positional.py``, tf-idf or BM25).  Sharding and the observability
-registry raise ``NotImplementedError`` naming the ROADMAP slice that brings
-them.
+(``core/positional.py``, tf-idf or BM25).  With an enabled
+:mod:`repro_torch.obs` registry every search records its counters, work
+histograms and the live WTBC roofline gauges.  Sharding raises
+``NotImplementedError`` naming the ROADMAP slice that brings it.
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 import zlib
 from typing import Any
 
 import numpy as np
 import torch
 
-from repro_torch import convert
+from repro_torch import convert, obs
+from repro_torch.analysis import roofline
 from repro_torch.core import drb, positional, scoring, wtbc
 from repro_torch.engine import executors
 from repro_torch.engine.config import SLA_CLASSES, EngineConfig
@@ -114,6 +117,9 @@ class SearchEngine:
         self._trace_counts: dict[executors.ExecutorKey, int] = {}
         self._us_per_pop: float | None = None   # EWMA, None until observed
         self._stats_lock = threading.Lock()     # executors / counts / EWMA
+        # None -> record into the live process default (obs.enable()/use());
+        # the serving frontend pins its own registry here on adoption
+        self.obs_registry: obs.Registry | None = None
         # the heap core's frontier: < 2*n_docs segments ever pending at once
         self._heap_cap = 2 * idx.n_docs + 4
         # the pool core's frontier holds <= n_docs segments (each split
@@ -187,9 +193,13 @@ class SearchEngine:
         return self._idx.device
 
     @property
-    def obs_registry(self):
-        raise NotImplementedError("the observability registry arrives with "
-                                  "ROADMAP Queue 1, slice 4 (serving)")
+    def _obs(self) -> obs.Registry:
+        """The registry this engine records into: an adopted one
+        (``obs_registry``, set by the serving frontend), else the *live*
+        process default — looked up per call so ``obs.enable()`` /
+        ``obs.use`` after construction still take effect."""
+        return self.obs_registry if self.obs_registry is not None \
+            else obs.default_registry()
 
     @property
     def aux(self) -> drb.DRBAux:
@@ -366,6 +376,12 @@ class SearchEngine:
             def note():
                 with self._stats_lock:
                     self._trace_counts[key] = self._trace_counts.get(key, 0) + 1
+                self._obs.counter(
+                    "repro_engine_traces_total",
+                    {"backend": key.backend, "strategy": key.strategy,
+                     "mode": key.mode},
+                    "executor constructions (growth after warmup = key "
+                    "churn)").inc()
             if key.mode in POSITIONAL_MODES:
                 ex = executors.make_single_positional(key, note=note)
             elif key.strategy == "dr":
@@ -381,6 +397,7 @@ class SearchEngine:
     def warmup(self, queries, *, max_batch: int = 1, k: int | None = None,
                mode: str = "and", strategy: str = "auto", measure="tfidf",
                budget: int | None = None, sla: str | None = None,
+               window: int | None = None,
                beam_width: int | None = None, df_cap: int | None = None,
                mega: bool | None = None) -> int:
         """Construct every executor the traffic profile can hit: one per
@@ -388,9 +405,13 @@ class SearchEngine:
         each by one real search.  Returns the number of new executors; after
         it, traffic of this profile adds none (``stats['traces']``).  For
         DRB ``or`` traffic pass a ``df_cap`` (e.g. :meth:`suggested_df_cap`
-        over the word population), else each batch derives its own."""
+        over the word population), else each batch derives its own.  On the
+        card it first builds every missing kernel library, so no request
+        (and no second thread) starts ``nvcc``."""
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+        if self.device.type == "cuda":
+            backend.build()
         if hasattr(queries, "ndim") or (
                 len(queries) and np.isscalar(queries[0])):
             arr = np.asarray(queries)
@@ -402,8 +423,8 @@ class SearchEngine:
             reps.setdefault(pow2_bucket(max(1, len(r))), r)
         before = sum(self._trace_counts.values())
         kw = dict(k=k, mode=mode, strategy=strategy, measure=measure,
-                  budget=budget, sla=sla, beam_width=beam_width,
-                  df_cap=df_cap, mega=mega)
+                  budget=budget, sla=sla, window=window,
+                  beam_width=beam_width, df_cap=df_cap, mega=mega)
         n_b = pow2_bucket(max_batch).bit_length()     # 1, 2, 4, ..., bucket
         for r in reps.values():
             row = [int(w) for w in r]
@@ -540,9 +561,13 @@ class SearchEngine:
         dev = self.device
         words = torch.from_numpy(ranks).to(dev)
         wmask = torch.from_numpy(mask).to(dev)
+        reg = self._obs
+        t0 = time.perf_counter() if reg.enabled else 0.0
         if mode in POSITIONAL_MODES:
             res = ex(self._idx, words, wmask, self._idf_table(m), window or 0,
                      self._avg_doc_len())
+            if reg.enabled:
+                self._record_search(reg, key, res, ranks.shape, t0)
             return SearchResults(docs=res.docs, scores=res.scores,
                                  n_found=res.n_found, work=res.iters, k=k,
                                  mode=mode, strategy=strat, measure=m.name,
@@ -554,6 +579,8 @@ class SearchEngine:
         else:
             res = ex(self._idx, self.aux, words, wmask, self._idf_table(m),
                      self._avg_doc_len())
+        if reg.enabled:
+            self._record_search(reg, key, res, ranks.shape, t0)
         return SearchResults(docs=res.docs, scores=res.scores,
                              n_found=res.n_found, work=res.iters, k=k,
                              mode=mode, strategy=strat, measure=m.name,
@@ -561,6 +588,61 @@ class SearchEngine:
                              overflowed=res.overflowed, padded=res.padded,
                              certified=res.certified,
                              score_bound=res.bound, sla=sla)
+
+    def _record_search(self, reg: obs.Registry, key, res, shape, t0: float
+                       ) -> None:
+        """Registry side of one observed search (enabled registries only):
+        per-(backend, strategy, mode) dispatch counters, per-row work
+        histograms and the live WTBC roofline gauges.  Reading ``res.docs``
+        to the host first waits for the device, so the wall time covers the
+        work and not only its launch — which is why a disabled registry
+        skips this method entirely."""
+        res.docs.cpu()
+        dt = time.perf_counter() - t0
+        B, Q = int(shape[0]), int(shape[1])
+        labels = {"backend": key.backend, "strategy": key.strategy,
+                  "mode": key.mode}
+        reg.counter("repro_engine_searches_total", labels,
+                    "search batches dispatched").inc()
+        reg.counter("repro_engine_rows_total", labels,
+                    "query rows searched").inc(B)
+        reg.histogram("repro_engine_dispatch_seconds", labels,
+                      "blocking wall time per search batch").observe(dt)
+        with self._stats_lock:
+            n_exec = len(self._executors)
+        reg.gauge("repro_engine_executors", None,
+                  "executors cached").set(n_exec)
+        reg.histogram("repro_engine_trips", labels,
+                      "search-loop trips per query row"
+                      ).observe_many(res.iters.cpu().numpy().ravel().tolist())
+        pops = getattr(res, "pops", None)
+        padded = getattr(res, "padded", None)
+        if padded is not None:
+            padded = padded.cpu().numpy().ravel()
+            reg.histogram("repro_engine_pad_lanes", labels,
+                          "dead beam lanes per query row (pad waste)"
+                          ).observe_many(padded.tolist())
+        if pops is None:
+            return
+        pops = pops.cpu().numpy().ravel()
+        reg.histogram("repro_engine_pops", labels,
+                      "candidate pops per query row"
+                      ).observe_many(pops.tolist())
+        if key.budget is None and len(pops):
+            # feed the deadline -> budget estimator from *unbudgeted*
+            # batches only: a budget-cut batch would bias us/pop optimistic
+            self.note_cost(dt, float(pops.mean()))
+        reg.gauge("repro_engine_us_per_pop", None,
+                  "live pop cost estimate feeding deadline budgets"
+                  ).set(self.us_per_pop)
+        if len(pops):
+            rl = roofline.wtbc_query_roofline(
+                backend=self.device.type,
+                measured_us_per_query=dt * 1e6 / max(B, 1),
+                pops=float(pops.mean()),
+                padded=float(padded.mean()) if padded is not None else 0.0,
+                q=Q, block=int(self.config.block))
+            roofline.live_wtbc_gauges(rl, reg)
 
     # -- post-processing -----------------------------------------------------
 

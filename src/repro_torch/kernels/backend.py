@@ -21,6 +21,15 @@ with all ``nvcc`` processes started together.
 **Launch counters.**  Every kernel has a plain integer count that its wrapper
 bumps once per launch and nowhere else, so a run can show that its main path
 went through the kernels (:func:`launch_counts`, :func:`reset_launch_counts`).
+
+**Threads.**  A server launches from its dispatch thread while the main
+thread may launch too (sampling queries decodes from the index).  One lock
+serializes building and loading the libraries, so two threads never start
+``nvcc`` on the same output, and each kernel's counter is bumped under its
+own lock.  Every thread launches on ``torch.cuda.current_stream()``, which is
+per thread but, unless a caller sets another, the same default stream for
+all of them: launches from different threads are ordered on that one stream,
+so no cross-stream hazard arises.
 """
 from __future__ import annotations
 
@@ -29,6 +38,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -42,6 +52,8 @@ BUILD_DIR = (_CHECKOUT if (_CHECKOUT / "pyproject.toml").is_file()
              else Path.cwd()) / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# held while a library is built or loaded (re-entrant: loading builds)
+_BUILD_LOCK = threading.RLock()
 
 
 def check_kernel_backend(kernel_backend: str) -> None:
@@ -88,6 +100,7 @@ class CudaKernel:
         self.launches = 0
         self._fn = None
         self._err = None
+        self._count_lock = threading.Lock()
 
     def library_path(self) -> Path:
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -97,17 +110,21 @@ class CudaKernel:
         return BUILD_DIR / f"{Path(self.source).stem}-{h.hexdigest()[:16]}.so"
 
     def _load(self):
-        path = self.library_path()
-        if not path.exists():
-            build([self])
-        lib = ctypes.CDLL(str(path))
-        fn = getattr(lib, self.name)
-        fn.argtypes = self.argtypes
-        fn.restype = ctypes.c_int
-        err = getattr(lib, f"{self.name}_error_string")
-        err.argtypes = (ctypes.c_int,)
-        err.restype = ctypes.c_char_p
-        self._fn, self._err = fn, err
+        with _BUILD_LOCK:
+            if self._fn is not None:          # another thread loaded it
+                return
+            path = self.library_path()
+            if not path.exists():
+                build([self])
+            lib = ctypes.CDLL(str(path))
+            fn = getattr(lib, self.name)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            err = getattr(lib, f"{self.name}_error_string")
+            err.argtypes = (ctypes.c_int,)
+            err.restype = ctypes.c_char_p
+            self._err = err
+            self._fn = fn                      # last: published when ready
 
     def launch(self, *args) -> None:
         """Call the C entry point (which launches on the current stream and
@@ -118,7 +135,8 @@ class CudaKernel:
         if code != 0:
             raise RuntimeError(f"{self.name}: CUDA error {code}: "
                                f"{self._err(code).decode()}")
-        self.launches += 1
+        with self._count_lock:
+            self.launches += 1
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -200,7 +218,8 @@ def launch_counts() -> dict[str, int]:
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
-        k.launches = 0
+        with k._count_lock:
+            k.launches = 0
 
 
 def _nvcc() -> str:
@@ -216,6 +235,11 @@ def build(kernels=KERNELS) -> float:
     source, all started together.  Returns the wall seconds taken.  Each
     compiler's output (``-Xptxas -v``: registers, shared memory, spills) is
     kept next to its library as ``<library>.log``."""
+    with _BUILD_LOCK:
+        return _build(kernels)
+
+
+def _build(kernels) -> float:
     t0 = time.perf_counter()
     todo = [k for k in kernels if not k.library_path().exists()]
     if not todo:

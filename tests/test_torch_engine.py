@@ -20,6 +20,7 @@ import torch
 
 from oracle import search_oracle
 from repro.core import scoring as r_scoring
+from repro_torch import obs
 from repro_torch.core import scoring as p_scoring
 from repro_torch.engine import EngineConfig, SearchEngine
 from repro_torch.engine.facade import DEFAULT_US_PER_POP, budget_bucket
@@ -227,8 +228,10 @@ def test_later_slices_raise_not_implemented(port_engine, query_batch):
     assert set(port_engine.word_positions(0, [1])) == {1}
     with pytest.raises(NotImplementedError, match="slice 5"):
         SearchEngine.shard([[1, 2]], 2)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        port_engine.obs_registry
+    # the observability registry is here now: unpinned, the engine records
+    # into the live process default
+    assert port_engine.obs_registry is None
+    assert port_engine._obs is obs.default_registry()
     # DRB, BM25 and snippets are here now; an engine carried across without
     # its DRB bitmaps (and holding no tokens to build them) says so
     for kw in (dict(strategy="drb"), dict(measure="bm25")):
