@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (WTBC-DR, WTBC-DRB,
-positional search and the serving stack).
+positional search, the serving stack and document-sharded search).
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -129,6 +129,25 @@ nothing falls back to the CPU):
    --max-batch 8 --smoke --snapshot-dir D --save-snapshot``, and again
    from ``D`` alone: both print ``smoke: PASS``, the second without a
    build.
+14. sharded search — ``SearchEngine.shard`` over the same corpus in 4
+   shards, placed by default (on one card every shard on ``cuda:0``): host
+   build time, cut points, each shard's documents, tokens and bytes on the
+   card beside the single engine's.  Launch counters reset, then as a user
+   calls them: the five batches of phase 5 on the heap core at P = 1 and
+   P = 16, and the four batches plus the ``doc_batch`` on DRB under tf-idf
+   and BM25, and ``snippets`` of every hit.  Checks: docs, scores and
+   n_found equal the single engine's on every exact batch; the budgeted
+   batch's ``certified`` is strict against the max of the shards' own
+   bounds and its bound covers the candidate the merge dropped, its
+   certified slots equal the exact answer's; snippets equal the tokens;
+   each DR batch launches only K1 (no K2), each DRB batch one ``drb_walk``
+   or ``drb_or`` per shard, each ``snippets`` call one ``wtbc_decode`` per
+   shard holding a hit.  ms per batch, sharded against single, and the
+   merge's own device time.  Then a sharded snapshot saved and loaded onto
+   the card (answers bitwise equal), one closed-loop ``SearchServer``
+   profile on the loaded engine (DRB ``or`` BM25, phase 13's traffic; one
+   ``drb_or`` per shard per served batch), and ``python -m
+   repro_torch.launch.serve --shards 4 --docs 2000 --smoke``.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -278,13 +297,19 @@ def device_breakdown(fn, reps: int, top: int = 6
     return sum(r[1] for r in rows), wall, rows[:top]
 
 
-def wall_ms(fn) -> tuple[float, object]:
-    import torch
-    torch.cuda.synchronize()
+def wall_ms(fn, device: str = "cuda") -> tuple[float, object]:
+    """Host ms around ``fn``, ending in a synchronize on the card."""
+    _sync(device)
     t0 = time.perf_counter()
     out = fn()
-    torch.cuda.synchronize()
+    _sync(device)
     return (time.perf_counter() - t0) * 1e3, out
+
+
+def _sync(device: str) -> None:
+    import torch
+    if device == "cuda":
+        torch.cuda.synchronize()
 
 
 def quarter_all_corpus(n_docs: int, seed: int):
@@ -744,6 +769,7 @@ def main(argv=None) -> int:
     from repro_torch.text import corpus as tcorpus
 
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1007,21 +1033,40 @@ def main(argv=None) -> int:
             f"{wall:.3f} ms wall, idle share {1 - busy / wall:.4f}")
     log("launches per batch: " + json.dumps(per_batch))
 
-    drb_rows, k1_drb_err = drb_phases(engine, cp, batches, kind)
+    phase_s = {"1-6": time.perf_counter() - t_start}
+
+    def timed_phase(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        phase_s[name] = time.perf_counter() - t
+        log(f"phases {name}: {phase_s[name]:.1f} s")
+        return out
+    drb_rows, k1_drb_err = timed_phase("7-10", drb_phases, engine, cp,
+                                       batches, kind)
     kernels[0]["max_abs_err"] = max(k1_err, k1_drb_err)
     kernels += drb_rows
-    kernels.append(positional_phases(engine, cp, batches))
-    f1, f2 = cap_phases(engine, batches)
+    kernels.append(timed_phase("11", positional_phases, engine, cp, batches))
+    f1, f2 = timed_phase("12", cap_phases, engine, batches)
     row = {k_["name"]: k_ for k_ in kernels}
     row["drb_or"]["k_40000"] = f1
     row["beam_loop"]["cap_1200000"] = f2
-    serving = serving_phase(engine)
+    serving = timed_phase("13", serving_phase, engine)
+    sharded = timed_phase("14", sharded_phase, engine, cp, batches, results,
+                          core_ms)
+    log("seconds per phase: " + json.dumps(
+        {k_: round(v, 1) for k_, v in phase_s.items()}))
     for k_ in kernels:
         k_["served_launches_per_batch"] = {
             name: p["launches_per_batch"][k_["name"]]
             for name, p in serving["profiles"].items()
             if k_["name"] in p["launches_per_batch"]}
+        k_["sharded_launches_per_batch"] = {
+            label: [b.get(k_["name"], 0) for b in per]
+            for label, per in sharded["launches_per_batch"].items()
+            if any(k_["name"] in b for b in per)}
+        k_["sharded_launches"] = sharded["launches"][k_["name"]]
     log(json.dumps({"serving": serving}))
+    log(json.dumps({"sharded": sharded}))
     log(json.dumps({"launches": counts,
                     "kernels": [k["name"] for k in kernels]}))
     log(json.dumps({"kernels": kernels}))
@@ -2464,6 +2509,292 @@ def serving_phase(engine, device: str = "cuda") -> dict:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return {"snapshot": snap, "profiles": profiles, "cli": cli}
+
+
+# ---------------------------------------------------------------------------
+# document-sharded search (phase 14)
+# ---------------------------------------------------------------------------
+
+N_SHARDS = 4
+
+
+def sharded_phase(engine, cp, batches, single_dr, single_ms,
+                  device: str = "cuda") -> dict:
+    """Phase 14: ``SearchEngine.shard`` over the same corpus (default
+    placement: every shard on the one card), its searches as a user calls
+    them against the single engine, the budgeted batch's certification,
+    snippets, launches per batch, a snapshot round trip, one served
+    profile and the CLI with ``--shards``.  ``single_dr`` holds phase 5's
+    (mode, band, q, budget, heap P=1 result) and ``single_ms`` its ms per
+    batch by core."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.core import distributed, drb, ranked, wtbc
+    from repro_torch.engine import EngineConfig, SearchEngine
+    from repro_torch.kernels import backend
+    from repro_torch.serve import QueryProfile, loadgen, snapshot
+    from repro_torch.text import corpus as tcorpus
+    on_card = device == "cuda"
+
+    # ---- 14a. the build --------------------------------------------------
+    t0 = time.perf_counter()
+    eng = SearchEngine.shard(cp, N_SHARDS, EngineConfig(block=BLOCK),
+                             device=None if on_card else "cpu")
+    _sync(device)
+    t_build = time.perf_counter() - t0
+    sh = eng.sharded
+    bases = sh.bases
+    parts = eng.shard_space_reports()
+    single_bytes = engine.space_report()["total"]
+    shards = [{"device": str(i.device), "first_doc": b, "docs": i.n_docs,
+               "tokens": i.n - i.n_docs, "device_bytes": r["total"]}
+              for i, b, r in zip(sh.idx, bases, parts)]
+    log(f"sharded: {N_SHARDS} shards built on the host in {t_build:.2f} s "
+        f"(index and tf bitmaps); devices "
+        f"{sorted({s_['device'] for s_ in shards})}")
+    for s, row in enumerate(shards):
+        log(f"  shard {s}: documents [{row['first_doc']}, "
+            f"{row['first_doc'] + row['docs']}) ({row['docs']} docs, "
+            f"{row['tokens']} tokens), {row['device_bytes']} bytes on "
+            f"{row['device']}")
+    log(f"sharded bytes on the device {sum(p_['total'] for p_ in parts)} "
+        f"beside the single engine's {single_bytes}")
+    check(eng.n_docs == engine.n_docs and all(
+        i.device.type == device for i in sh.idx), "shard placement")
+
+    # ---- 14b. the sharded path as a user calls it ---------------------------
+    doc_q = doc_batch(cp, engine, np.random.default_rng(SEED + 5),
+                      tcorpus.fdoc_bands(cp.n_docs)["ii"], B)
+    drb_batches = [(m, b, q) for m, b, q in batches] + [("and", "doc", doc_q)]
+    warm = [list(map(int, batches[0][2][0]))]
+    for mode in ("and", "or"):
+        for prof in (dict(), dict(beam_width=16)):
+            eng.warmup(warm, max_batch=B, k=K, mode=mode, **prof)
+            eng.warmup(warm, max_batch=B, k=K, mode=mode, budget=64, **prof)
+        for meas in ("tfidf", "bm25"):
+            eng.warmup(warm, max_batch=B, k=K, mode=mode, strategy="drb",
+                       measure=meas)
+    traces = dict(eng.stats["traces"])
+    backend.reset_launch_counts()
+    ms = {"dr P=1": [], "dr P=16": [], "drb tfidf": [], "drb bm25": []}
+    launches = {k_: [] for k_ in ms}
+    results = []
+
+    def run(label, q, **kw):
+        before = backend.launch_counts()
+        t, res = wall_ms(lambda: eng.search(q, k=K, **kw), device)
+        after = backend.launch_counts()
+        ms[label].append(t)
+        launches[label].append({k_: after[k_] - before[k_] for k_ in after
+                                if after[k_] > before[k_]})
+        return res
+
+    def same(a, b, what):
+        for leaf in ("docs", "scores", "n_found"):
+            check(torch.equal(getattr(a, leaf).cpu(), getattr(b, leaf).cpu()),
+                  f"sharded differs from the single engine on {leaf} "
+                  f"({what})")
+
+    budgeted = None
+    exact = {(m, b): r for m, b, _, budget, r in single_dr if budget is None}
+    for mode, band, q, budget, single in single_dr:
+        for label, prof in (("dr P=1", {}), ("dr P=16", {"beam_width": 16})):
+            res = run(label, q, mode=mode, budget=budget, **prof)
+            if budget is None:
+                same(res, single, f"{label} {mode} band {band}")
+            elif label == "dr P=1":
+                budgeted = (q, budget, res, exact[mode, band])
+    check(eng.stats["traces"] == traces, "sharded DR executors were built "
+          "after warmup")
+    for mode, band, q in drb_batches:
+        for label, meas in (("drb tfidf", "tfidf"), ("drb bm25", "bm25")):
+            res = run(label, q, mode=mode, strategy="drb", measure=meas)
+            same(res, engine.search(q, k=K, mode=mode, strategy="drb",
+                                    measure=meas),
+                 f"{label} {mode} band {band}")
+            results.append((mode, band, meas, q, res))
+    # snippets of every hit of every DRB batch, from each hit's own shard
+    snip_launch, hits_seen = [], set()
+    for mode, band, meas, q, res in results:
+        before = backend.launch_counts()
+        sn = eng.snippets(res, length=8)
+        after = backend.launch_counts()
+        holders = set()
+        for b in range(B):
+            for (d, _), words in zip(res.hits(b), sn[b]):
+                check(np.array_equal(words, cp.doc_tokens[d][:8]),
+                      f"sharded snippet of document {d} differs from its "
+                      "tokens")
+                holders.add(int(np.searchsorted(bases, d, "right")) - 1)
+        hits_seen |= holders
+        snip_launch.append({k_: after[k_] - before[k_] for k_ in after
+                            if after[k_] > before[k_]})
+        if on_card:
+            check(snip_launch[-1] == ({"wtbc_decode": len(holders)}
+                                      if holders else {}),
+                  f"snippets launched {snip_launch[-1]} for hits on "
+                  f"{len(holders)} shards")
+    counts = backend.launch_counts()
+    log("sharded path launches: " + json.dumps(counts))
+    if on_card:
+        for label in ms:
+            for got in launches[label]:
+                if label.startswith("dr "):
+                    check(set(got) == {"wavelet_count"},
+                          f"{label} batch launched {got}: K1 only, no K2")
+                else:
+                    check(set(got) <= {"drb_walk", "drb_or"} and
+                          sum(got.values()) == N_SHARDS and
+                          len(got) == 1,
+                          f"{label} batch launched {got}: one drb_walk or "
+                          f"drb_or per shard")
+        for k_ in ("wavelet_count", "drb_walk", "drb_or", "wtbc_decode"):
+            check(counts[k_] > 0, f"{k_} never launched on the sharded path")
+        check(counts["beam_loop"] == 0, "the sharded path launched beam_loop")
+    check(len(hits_seen) > 1, f"snippet hits on shards {hits_seen} only")
+
+    # the budgeted batch: merged certified / bound against the shards' own
+    q, budget, res, exact = budgeted
+    r_, m_ = eng._encode_queries(q)
+    wt, mt = torch.from_numpy(r_), torch.from_numpy(m_)
+    idf = eng._idf_table(eng._resolve_measure("tfidf"))
+    per = [ranked.topk_dr_batch(i, wt.to(i.device), mt.to(i.device),
+                                idf.to(i.device), k=K, conjunctive=False,
+                                heap_cap=eng._heap_cap, max_pops=budget)
+           for i in sh.idx]
+    bound = torch.stack([p_.bound.cpu() for p_ in per]).amax(0)
+    over = torch.stack([p_.overflowed.cpu() for p_ in per]).any(0)
+    gathered = torch.cat([p_.scores.cpu() for p_ in per], 1)
+    dropped = torch.sort(gathered, 1, descending=True).values[:, K]
+    s_ = res.scores.cpu()
+    want = (s_ > bound[:, None]) & ~over[:, None] & (s_ > -np.inf)
+    check(torch.equal(res.certified.cpu(), want),
+          "budgeted sharded batch: certified is not strict against the max "
+          "shard bound")
+    check(torch.equal(res.score_bound.cpu(), torch.maximum(bound, dropped)),
+          "budgeted sharded batch: the bound does not cover the dropped "
+          "candidate")
+    cert = res.certified.cpu()
+    for b in range(B):
+        nc = int(cert[b].sum())
+        check(bool(cert[b, :nc].all()) and torch.equal(
+            res.docs[b, :nc].cpu(), exact.docs[b, :nc].cpu()),
+            f"budgeted sharded row {b}: certified slots differ from the "
+            "exact answer")
+    log(f"sharded budget {budget} (or iii): certified per row "
+        f"{cert.sum(1).tolist()}, bound {res.score_bound.tolist()}, pops "
+        f"{res.pops.tolist()}")
+
+    # ms per batch, sharded against single, and the merge's own time
+    single_drb = {"drb tfidf": [], "drb bm25": []}
+    for mode, band, q in drb_batches:
+        for label, meas in (("drb tfidf", "tfidf"), ("drb bm25", "bm25")):
+            single_drb[label].append(wall_ms(lambda: engine.search(
+                q, k=K, mode=mode, strategy="drb", measure=meas), device)[0])
+    versus = {"dr P=1": single_ms["P=1"], "dr P=16": single_ms["P=16"],
+              **single_drb}
+    for label in ms:
+        log(f"sharded {label}: ms per batch " +
+            ", ".join(f"{x:.2f}" for x in ms[label]) + " (single: " +
+            ", ".join(f"{x:.2f}" for x in versus[label]) + ")")
+    mode, band, q = drb_batches[3]                    # or, band iii
+    r_, m_ = eng._encode_queries(q)
+    meas = eng._resolve_measure("bm25")
+    cap = eng._df_cap(r_, m_)
+    shard_res = [drb.topk_drb_or(i, a, torch.from_numpy(r_).to(i.device),
+                                 torch.from_numpy(m_).to(i.device), meas,
+                                 k=K, max_df_cap=cap, idf=t_, avg_dl=avg)
+                 for i, a, t_, avg in zip(sh.idx, sh.aux,
+                                          eng._shard_idf(meas),
+                                          sh.replicate(sh.global_avg_dl))]
+
+    def merge():
+        return distributed.merge_topk(shard_res, bases, k=K,
+                                      device=sh.devices[0], has_pad=False)
+    check(torch.equal(merge().docs, eng.search(
+        q, k=K, mode="or", strategy="drb", measure="bm25").docs),
+        "merge of the shards' DRB or results differs from the search")
+    merge_ms = merge_wall = None
+    if on_card:
+        merge_ms, merge_wall = profile_device(merge, 50)
+        log(f"merge (B={B}, {N_SHARDS} x k={K}): {merge_ms:.6f} ms of device "
+            f"time, {merge_wall:.4f} ms per call on the host")
+
+    # ---- 14c. snapshot round trip -------------------------------------------
+    tmp = Path(tempfile.mkdtemp(prefix="wtbc-sharded-"))
+    try:
+        t0 = time.perf_counter()
+        path = snapshot.save(eng, tmp / "snap")
+        t_save = time.perf_counter() - t0
+        disk = sum(p_.stat().st_size for p_ in path.iterdir())
+        t0 = time.perf_counter()
+        loaded = snapshot.load(tmp / "snap", device=None if on_card
+                               else "cpu")
+        _sync(device)
+        t_load = time.perf_counter() - t0
+        check(loaded.backend == "sharded" and [
+            str(i.device) for i in loaded.idx] == [
+            str(i.device) for i in sh.idx], "sharded snapshot placement")
+        names = ("docs", "scores", "n_found", "work", "pops", "overflowed",
+                 "padded", "certified", "score_bound")
+        for mode, band, meas, q, res in results:
+            again = loaded.search(q, k=K, mode=mode, strategy="drb",
+                                  measure=meas)
+            bad = [n for n in names if (getattr(res, n) is None) != (
+                getattr(again, n) is None) or (getattr(res, n) is not None
+                and not torch.equal(getattr(res, n), getattr(again, n)))]
+            check(not bad, f"loaded sharded snapshot differs on {bad} "
+                  f"({mode} band {band} {meas})")
+        a = eng.search(batches[0][2], k=K, mode="and", beam_width=16)
+        b_ = loaded.search(batches[0][2], k=K, mode="and", beam_width=16)
+        check(torch.equal(a.docs, b_.docs) and torch.equal(a.scores,
+                                                             b_.scores),
+              "loaded sharded snapshot differs on DR and ii")
+        snap = {"save_s": t_save, "load_s": t_load, "disk_bytes": disk,
+                "device_bytes": loaded.space_report()["total"]}
+        log(f"sharded snapshot: saved in {t_save:.3f} s ({disk} bytes on "
+            f"disk), loaded in {t_load:.3f} s; answers bitwise equal")
+
+        # ---- 14d. one served profile on the loaded engine ------------------
+        queries = loadgen.sample_queries(loaded, SERVE_DISTINCT, 3,
+                                         seed=SEED)
+        profile = QueryProfile(mode="or", measure="bm25", k=K,
+                               df_cap=loaded.suggested_df_cap(queries))
+        served = serve_one(loaded, "sharded-drb-or-bm25", profile, queries,
+                           device=device)
+        if on_card:
+            check(served["launches_per_batch"] == {"drb_or": N_SHARDS},
+                  f"served sharded batches launched "
+                  f"{served['launches_per_batch']}")
+
+        # ---- 14e. the CLI with --shards ------------------------------------
+        env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve()
+                                              .parent / "src"))
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--shards",
+               str(N_SHARDS), "--docs", "2000", "--requests", "200",
+               "--max-batch", "8", "--smoke", "--device", device]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                           timeout=400, cwd=Path(__file__).resolve().parent)
+        secs = time.perf_counter() - t0
+        tail = (r.stdout + r.stderr)[-3000:]
+        check(r.returncode == 0 and "smoke: PASS" in r.stdout,
+              f"CLI --shards {N_SHARDS} failed (exit {r.returncode}):\n{tail}")
+        summary = [ln for ln in r.stdout.splitlines()
+                   if " ok / " in ln or ln.startswith("batch sizes")]
+        log(f"CLI --shards {N_SHARDS}: smoke: PASS in {secs:.1f} s; "
+            + " | ".join(summary))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"build_s": t_build, "shards": shards,
+            "single_device_bytes": single_bytes, "ms_per_batch": ms,
+            "single_ms_per_batch": versus, "launches_per_batch": launches,
+            "snippet_launches": snip_launch, "launches": counts,
+            "merge_device_ms": merge_ms, "merge_wall_ms": merge_wall,
+            "snapshot": snap, "served": served,
+            "cli": {"s": secs, "summary": summary}}
 
 
 if __name__ == "__main__":

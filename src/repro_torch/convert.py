@@ -15,6 +15,11 @@ never needs ``repro`` itself:
 ``aux_arrays`` (DRB tf bitmaps)
     ``words`` (the ``BitVec`` words, uint32), ``counts``, ``n_bits``, and
     the ``DRBAux`` fields ``bit_off``, ``has_bm``, ``eps``.
+``sharded_arrays`` (a document-sharded index, stacked)
+    ``idx`` and ``aux`` as above with a leading shard axis on every array
+    (``length``, ``n``, ``n_docs`` and ``n_bits`` too), and the
+    ``ShardedWTBC`` fields ``doc_base``, ``global_df``, ``global_idf``,
+    ``global_avg_dl``, ``n_shards``.
 """
 from __future__ import annotations
 
@@ -48,13 +53,20 @@ def from_reference(index_arrays: dict, model_arrays: dict, *,
                    device) -> tuple[WTBCIndex, scdc.SCDCModel]:
     """A port ``WTBCIndex`` on ``device`` and its ``SCDCModel`` from numpy
     arrays under the reference's field names (module docstring)."""
+    return (index_from_arrays(index_arrays, device=device),
+            model_from_arrays(model_arrays))
+
+
+def index_from_arrays(index_arrays: dict, *, device) -> WTBCIndex:
+    """A port ``WTBCIndex`` on ``device`` from ``index_arrays`` (module
+    docstring)."""
     a = index_arrays
     levels = tuple(
         ByteMap(data=_t(lv["data"], np.uint8, device),
                 counts=_t(lv["counts"], np.int32, device),
                 length=int(lv["length"]), block=int(lv["block"]))
         for lv in a["levels"])
-    idx = WTBCIndex(
+    return WTBCIndex(
         levels=levels,
         offsets=tuple(_t(o, np.int32, device) for o in a["offsets"]),
         cw=_t(a["cw"], np.uint8, device),
@@ -66,15 +78,30 @@ def from_reference(index_arrays: dict, model_arrays: dict, *,
         occ=_t(a["occ"], np.int32, device),
         doc_len=_t(a["doc_len"], np.int32, device),
         n=int(a["n"]), n_docs=int(a["n_docs"]), s=int(a["s"]), c=int(a["c"]))
+
+
+def model_from_arrays(model_arrays: dict) -> scdc.SCDCModel:
+    """An ``SCDCModel`` (host numpy) from ``model_arrays``."""
     m = model_arrays
-    model = scdc.SCDCModel(
+    return scdc.SCDCModel(
         s=int(m["s"]), c=int(m["c"]),
         codes=np.asarray(m["codes"], dtype=np.uint8),
         lens=np.asarray(m["lens"], dtype=np.int8),
         rank_of_word=np.asarray(m["rank_of_word"], dtype=np.int32),
         word_of_rank=np.asarray(m["word_of_rank"], dtype=np.int32),
         freqs=np.asarray(m["freqs"], dtype=np.int64))
-    return idx, model
+
+
+def sharded_from_reference(sharded_arrays: dict, *, device=None,
+                           devices=None):
+    """A port ``ShardedWTBC`` from the reference's stacked ``ShardedWTBC``
+    leaves as numpy (``sharded_arrays``: ``idx`` as ``index_arrays`` and
+    ``aux`` as ``aux_arrays`` with a leading shard axis, plus ``doc_base``,
+    ``global_df``, ``global_idf``, ``global_avg_dl`` and ``n_shards``):
+    each shard trimmed to its own lengths and placed on its device —
+    ``devices[s]``, or by the rule of ``distributed.resolve_devices``."""
+    from repro_torch.core.distributed import ShardedWTBC
+    return ShardedWTBC.unstack(sharded_arrays, device=device, devices=devices)
 
 
 def idf_table(table, idx: WTBCIndex) -> torch.Tensor:

@@ -10,12 +10,12 @@ from __future__ import annotations
 
 from typing import Any, NamedTuple
 
-from repro_torch.core import drb, mega, positional, ranked
+from repro_torch.core import distributed, drb, mega, positional, ranked
 
 
 class ExecutorKey(NamedTuple):
     """Hashable cache key."""
-    backend: str          # "single"
+    backend: str          # "single" | "sharded"
     strategy: str         # "dr" | "drb" (post-"auto" resolution)
     mode: str             # "and" | "or" | "phrase" | "near"
     measure: Any          # frozen scoring dataclass
@@ -77,4 +77,20 @@ def make_single_positional(key: ExecutorKey, *, note):
         return positional.topk_positional_batch(
             idx, words, wmask, idf, k=key.k, phrase=phrase, measure=measure,
             window=window, avg_dl=avg_dl)
+    return fn
+
+
+def make_sharded(key: ExecutorKey, *, heap_cap: int, note):
+    """(sharded, words, wmask, idf) -> DRResult with (B, k) leaves on the
+    first shard's device.  ``idf`` is the measure's *global* table, one copy
+    per shard device, so sharded scores match the single-index backend for
+    every measure; the shards' devices ride on the ``ShardedWTBC``."""
+    note()
+    method = f"{key.strategy}-{key.mode}"
+
+    def fn(sharded, words, wmask, idf):
+        return distributed.distributed_topk(
+            sharded, words, wmask, k=key.k, method=method, heap_cap=heap_cap,
+            max_df_cap=key.df_cap or 2, max_pops=key.budget,
+            measure=key.measure, idf=idf, beam_width=key.beam_width)
     return fn

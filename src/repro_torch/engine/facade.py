@@ -3,6 +3,7 @@ positional search).
 
     engine = SearchEngine.build(doc_tokens)                 # on the card
     engine = SearchEngine.build(doc_tokens, device="cpu")   # plain PyTorch
+    engine = SearchEngine.shard(doc_tokens, n_shards=4)     # document-sharded
     res = engine.search([[w1, w2], [w3]], k=10, mode="and")
     res = engine.search([[w1, w2]], k=10, mode="or", measure="bm25")
     res = engine.search([[w1, w2]], k=10, mode="near", window=8)
@@ -18,8 +19,12 @@ classes, snippet decoding, and an executor cache keyed like the reference's.
 BM25); ``phrase``/``near`` queries and ``word_positions`` on the bare WTBC
 (``core/positional.py``, tf-idf or BM25).  With an enabled
 :mod:`repro_torch.obs` registry every search records its counters, work
-histograms and the live WTBC roofline gauges.  Sharding raises
-``NotImplementedError`` naming the ROADMAP slice that brings it.
+histograms and the live WTBC roofline gauges.  A document-sharded engine
+(:meth:`SearchEngine.shard`, ``backend="sharded"``) holds one index per
+shard, each on its own device, answers ``and``/``or`` on every shard with
+the same cores under the global idf and mean document length, and merges
+the per-shard top-k lists (``core/distributed.py``); ``phrase``/``near``
+are single-index only, as in the reference.
 """
 from __future__ import annotations
 
@@ -34,7 +39,7 @@ import torch
 
 from repro_torch import convert, obs
 from repro_torch.analysis import roofline
-from repro_torch.core import drb, positional, scoring, wtbc
+from repro_torch.core import distributed, drb, positional, scoring, wtbc
 from repro_torch.engine import executors
 from repro_torch.engine.config import SLA_CLASSES, EngineConfig
 from repro_torch.engine.results import SearchResults
@@ -90,23 +95,26 @@ def _normalize_docs(docs, vocab_size: int | None):
 
 
 class SearchEngine:
-    """Facade over the WTBC-DR and WTBC-DRB search cores on one device.
+    """Facade over the WTBC-DR and WTBC-DRB search cores: one index on one
+    device, or one index per shard (``backend="sharded"``).
 
-    Construct with :meth:`build` (or :meth:`from_arrays` to carry an index
-    across); query with :meth:`search`; recover text around the hits with
-    :meth:`snippets`.
+    Construct with :meth:`build` or :meth:`shard` (or :meth:`from_arrays`
+    to carry an index across); query with :meth:`search`; recover text
+    around the hits with :meth:`snippets`.
     """
 
     def __init__(self, *, _token=None, config: EngineConfig, model,
-                 idx: wtbc.WTBCIndex, doc_tokens=None):
+                 idx: wtbc.WTBCIndex | None = None, doc_tokens=None,
+                 sharded: distributed.ShardedWTBC | None = None):
         if _token is not _CTOR_TOKEN:
-            raise TypeError("use SearchEngine.build(...) or "
+            raise TypeError("use SearchEngine.build(...), "
+                            "SearchEngine.shard(...) or "
                             "SearchEngine.from_arrays(...)")
         self.config = config
         self.model = model
-        self.n_docs = idx.n_docs
-        self.backend = "single"
+        self.backend = "single" if sharded is None else "sharded"
         self._idx = idx
+        self._sharded = sharded
         # kept only until the lazy DRB build has run — pinning the raw
         # tokens for good would defeat the paper's "no space" premise
         self._doc_tokens = doc_tokens if config.with_drb else None
@@ -120,12 +128,23 @@ class SearchEngine:
         # None -> record into the live process default (obs.enable()/use());
         # the serving frontend pins its own registry here on adoption
         self.obs_registry: obs.Registry | None = None
-        # the heap core's frontier: < 2*n_docs segments ever pending at once
-        self._heap_cap = 2 * idx.n_docs + 4
-        # the pool core's frontier holds <= n_docs segments (each split
-        # removes 1, adds <= 2, over < n_docs splits)
-        self._mega_cap = idx.n_docs + 2
-        self._df_np = idx.df.cpu().numpy()
+        if sharded is None:
+            self.n_docs = idx.n_docs
+            # the heap core's frontier: < 2*n_docs segments pending at once
+            self._heap_cap = 2 * idx.n_docs + 4
+            # the pool core's frontier holds <= n_docs segments (each split
+            # removes 1, adds <= 2, over < n_docs splits)
+            self._mega_cap = idx.n_docs + 2
+            self._df_np = idx.df.cpu().numpy()
+        else:
+            self.n_docs = sharded.n_docs
+            self._heap_cap = 2 * max(i.n_docs for i in sharded.idx) + 4
+            self._mega_cap = 0          # mega covers the single backend only
+            # per-word max over shards: any shard's DRB/OR gather fits
+            self._df_np = np.max([i.df.cpu().numpy() for i in sharded.idx],
+                                 axis=0)
+            self._aux = sharded.aux
+            self._avg_dl = sharded.global_avg_dl
         self._max_df_cap = int(self._df_np.max()) + 2
         self._content_tag: int | None = None
 
@@ -178,19 +197,54 @@ class SearchEngine:
         return eng
 
     @classmethod
-    def shard(cls, *args, **kwargs):
-        raise NotImplementedError("document-sharded engines arrive with "
-                                  "ROADMAP Queue 1, slice 5 (scale-out)")
+    def shard(cls, docs, n_shards: int, config: EngineConfig | None = None,
+              *, vocab_size: int | None = None, device=None,
+              devices=None) -> "SearchEngine":
+        """Build a document-sharded engine: one WTBC (and its DRB bitmaps)
+        per contiguous, token-balanced document range, a global (s,c)-DC
+        code and global idf so shard scores merge exactly.  ``devices``
+        places shard ``s`` on ``devices[s]``; without it shard ``s`` goes to
+        ``cuda:{s % device_count}`` (raising when no card is present), or
+        every shard to the CPU with ``device="cpu"``."""
+        config = config or EngineConfig()
+        doc_tokens, vocab_size = _normalize_docs(docs, vocab_size)
+        sharded, model = distributed.build_sharded(
+            doc_tokens, vocab_size, n_shards=n_shards, block=config.block,
+            with_drb=config.with_drb, eps=config.eps, device=device,
+            devices=devices)
+        return cls(_token=_CTOR_TOKEN, config=config, model=model,
+                   sharded=sharded)
+
+    @classmethod
+    def from_sharded(cls, sharded: distributed.ShardedWTBC, model,
+                     config: EngineConfig) -> "SearchEngine":
+        """A sharded engine over an already placed ``ShardedWTBC`` (a
+        snapshot's, or one carried across with
+        ``convert.sharded_from_reference``)."""
+        if config.block != sharded.idx[0].levels[0].block:
+            raise ValueError(f"config.block={config.block} differs from the "
+                             f"index's block "
+                             f"{sharded.idx[0].levels[0].block}")
+        return cls(_token=_CTOR_TOKEN, config=config, model=model,
+                   sharded=sharded)
 
     # -- state ----------------------------------------------------------------
 
     @property
-    def idx(self) -> wtbc.WTBCIndex:
-        return self._idx
+    def idx(self) -> wtbc.WTBCIndex | tuple[wtbc.WTBCIndex, ...]:
+        """The index (a tuple of per-shard indexes when sharded)."""
+        return self._idx if self._sharded is None else self._sharded.idx
+
+    @property
+    def sharded(self) -> distributed.ShardedWTBC | None:
+        return self._sharded
 
     @property
     def device(self) -> torch.device:
-        return self._idx.device
+        """Where queries enter and results come back (the first shard's
+        device when sharded)."""
+        return self._idx.device if self._sharded is None \
+            else self._sharded.devices[0]
 
     @property
     def _obs(self) -> obs.Registry:
@@ -202,9 +256,10 @@ class SearchEngine:
             else obs.default_registry()
 
     @property
-    def aux(self) -> drb.DRBAux:
+    def aux(self) -> drb.DRBAux | tuple[drb.DRBAux, ...]:
         """DRB tf bitmaps, built on the host on first use and placed on the
-        engine's device."""
+        engine's device (a sharded engine's per-shard bitmaps are built with
+        it)."""
         if self._aux is None:
             if not self.config.with_drb:
                 raise ValueError("this engine was built with with_drb=False; "
@@ -219,9 +274,22 @@ class SearchEngine:
         return self._aux
 
     def _idf_table(self, measure) -> torch.Tensor:
+        """Per-measure idf table; on the sharded backend from the *global*
+        document frequencies (a shard's own df would make shard scores
+        incomparable)."""
         if measure.name not in self._idf_tables:
-            self._idf_tables[measure.name] = measure.idf(self._idx)
+            self._idf_tables[measure.name] = measure.idf(self._idx) \
+                if self._sharded is None \
+                else distributed.global_idf_table(self._sharded, measure)
         return self._idf_tables[measure.name]
+
+    def _shard_idf(self, measure) -> tuple[torch.Tensor, ...]:
+        """The global idf table on every shard's device (copied once)."""
+        key = ("shards", measure.name)
+        if key not in self._idf_tables:
+            self._idf_tables[key] = self._sharded.replicate(
+                self._idf_table(measure))
+        return self._idf_tables[key]
 
     def _avg_doc_len(self) -> torch.Tensor:
         """BM25's mean document length: an exact integer sum on the host,
@@ -238,10 +306,14 @@ class SearchEngine:
         config plus the index's document-frequency, separator-position and
         document-length tables."""
         if self._content_tag is None:
-            idx = self._idx
+            shards = (self._idx,) if self._sharded is None \
+                else self._sharded.idx
             h = zlib.crc32(repr(dataclasses.astuple(self.config)).encode())
-            for leaf in (self._df_np, idx.sep_pos.cpu().numpy(),
-                         idx.doc_len.cpu().numpy()):
+            leaves = [self._df_np]
+            for idx in shards:
+                leaves += [idx.sep_pos.cpu().numpy(),
+                           idx.doc_len.cpu().numpy()]
+            for leaf in leaves:
                 h = zlib.crc32(np.ascontiguousarray(leaf), h)
             self._content_tag = h
         return self._content_tag
@@ -382,7 +454,10 @@ class SearchEngine:
                      "mode": key.mode},
                     "executor constructions (growth after warmup = key "
                     "churn)").inc()
-            if key.mode in POSITIONAL_MODES:
+            if key.backend == "sharded":
+                ex = executors.make_sharded(key, heap_cap=self._heap_cap,
+                                            note=note)
+            elif key.mode in POSITIONAL_MODES:
                 ex = executors.make_single_positional(key, note=note)
             elif key.strategy == "dr":
                 ex = executors.make_single_dr(key, heap_cap=self._heap_cap,
@@ -523,6 +598,9 @@ class SearchEngine:
             if beam_width is not None:
                 raise ValueError("beam_width applies to the looped and/or "
                                  f"search cores only (got mode={mode!r})")
+            if self.backend == "sharded":
+                raise ValueError(f"mode={mode!r} is not yet supported on the "
+                                 "sharded backend; build a single-host engine")
             # positional top-k ranks the whole document table
             k = min(k, self.n_docs)
         if beam_width is None:
@@ -535,7 +613,8 @@ class SearchEngine:
         mega = self.config.default_mega if mega is None else bool(mega)
         # the mega core covers DR and/or only; elsewhere normalize it off (a
         # serving profile may carry one flag across strategy routing)
-        mega = mega and strat == "dr" and mode in ("and", "or")
+        mega = mega and self.backend == "single" and strat == "dr" \
+            and mode in ("and", "or")
         if mega:
             beam_width = 1      # one pop per row: the batch dim IS the beam
         ranks, mask = self._encode_queries(queries)
@@ -574,7 +653,9 @@ class SearchEngine:
                                  match_pos=res.match_pos,
                                  match_len=res.match_len,
                                  beam_width=beam_width, sla=sla)
-        if strat == "dr":
+        if self.backend == "sharded":
+            res = ex(self._sharded, words, wmask, self._shard_idf(m))
+        elif strat == "dr":
             res = ex(self._idx, words, wmask, self._idf_table(m))
         else:
             res = ex(self._idx, self.aux, words, wmask, self._idf_table(m),
@@ -646,32 +727,47 @@ class SearchEngine:
 
     # -- post-processing -----------------------------------------------------
 
+    def _shard_of(self, docs: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """(shard, local document id) of each global document id."""
+        if self._sharded is None:
+            return np.zeros(len(docs), np.int64), docs
+        bases = np.asarray(self._sharded.bases)
+        s = np.searchsorted(bases, docs, side="right") - 1
+        return s, docs - bases[s]
+
     def snippets(self, results: SearchResults,
                  length: int = 8) -> list[list[np.ndarray]]:
         """Decode the first ``length`` word ids of every hit document
         straight from the compressed index (no stored text).  Returns one
         list per query, one id array per hit (shorter documents come back
-        whole).  Every hit of the result is decoded in one batched
-        ``wtbc.decode_at`` — on the card, one ``wtbc_decode`` launch."""
+        whole).  The hits of each index (each shard's, when sharded) are
+        decoded in one batched ``wtbc.decode_at`` on its device — on the
+        card, one ``wtbc_decode`` launch."""
         length = int(length)
         if length < 1:
             raise ValueError(f"length must be >= 1, got {length}")
-        idx = self._idx
         hits = [[d for d, _ in results.hits(b)] for b in range(len(results))]
-        flat = [d for row in hits for d in row]
-        if not flat:
+        flat = np.array([d for row in hits for d in row], dtype=np.int64)
+        if not len(flat):
             return [[] for _ in hits]
-        d = torch.tensor(flat, dtype=torch.int32, device=self.device)
-        pos = wtbc.doc_start(idx, d)[:, None] + torch.arange(
-            length, dtype=torch.int32, device=self.device)
-        # a fixed decode width; positions clamped in bounds, trimmed on host
-        ranks = wtbc.decode_at(idx, pos.clamp(max=idx.n - 1)).cpu().numpy()
-        n_take = np.minimum(length, idx.doc_len[d.long()].cpu().numpy())
-        words = self.model.word_of_rank[ranks]
+        shard, local = self._shard_of(flat)
+        indexes = (self._idx,) if self._sharded is None else self._sharded.idx
+        words = [None] * len(flat)
+        for s in np.unique(shard):
+            idx = indexes[s]
+            at = np.flatnonzero(shard == s)
+            d = torch.from_numpy(local[at].astype(np.int32)).to(idx.device)
+            pos = wtbc.doc_start(idx, d)[:, None] + torch.arange(
+                length, dtype=torch.int32, device=idx.device)
+            # a fixed decode width; positions clamped in bounds, trimmed on
+            # the host
+            ranks = wtbc.decode_at(idx, pos.clamp(max=idx.n - 1)).cpu().numpy()
+            n_take = np.minimum(length, idx.doc_len[d.long()].cpu().numpy())
+            for i, j in enumerate(at):
+                words[j] = self.model.word_of_rank[ranks[i, :n_take[i]]]
         out, at = [], 0
         for row in hits:
-            out.append([words[at + i, :n_take[at + i]]
-                        for i in range(len(row))])
+            out.append(words[at:at + len(row)])
             at += len(row)
         return out
 
@@ -679,10 +775,10 @@ class SearchEngine:
                        cap: int = 32) -> dict[int, np.ndarray]:
         """Doc-relative occurrence positions of each word id inside document
         ``doc`` (the first ``cap`` per word), extracted straight from the
-        compressed index — the hit-highlighting companion to
-        :meth:`snippets`.  Every word at once: on the card one
-        ``wavelet_count`` launch for the counts and one ``wtbc_locate``
-        launch for the positions."""
+        compressed index (the hit's own shard when sharded) — the
+        hit-highlighting companion to :meth:`snippets`.  Every word at once:
+        on the card one ``wavelet_count`` launch for the counts and one
+        ``wtbc_locate`` launch for the positions."""
         doc = int(doc)
         if not 0 <= doc < self.n_docs:
             raise ValueError(f"doc id {doc} outside [0, {self.n_docs})")
@@ -693,9 +789,12 @@ class SearchEngine:
                 raise ValueError(f"word id {w} outside [1, {V})")
         if not ids:
             return {}
+        shard, local = self._shard_of(np.array([doc], dtype=np.int64))
+        idx = self._idx if self._sharded is None \
+            else self._sharded.idx[int(shard[0])]
         ranks = torch.from_numpy(self.model.rank_of_word[ids].astype(
-            np.int32)).to(self.device)
-        pos = positional.doc_positions(self._idx, ranks, doc,
+            np.int32)).to(idx.device)
+        pos = positional.doc_positions(idx, ranks, int(local[0]),
                                        cap=int(cap)).cpu().numpy()
         return {w: p[p >= 0] for w, p in zip(ids, pos)}
 
@@ -710,13 +809,25 @@ class SearchEngine:
 
     def space_report(self) -> dict[str, int]:
         """Index (and, once built, DRB bitmap) space on its device, bytes
-        per component."""
-        report = wtbc.space_report(self._idx)
-        if self._aux is not None:
-            aux_rep = drb.space_report(self._aux)
-            report.update({f"drb_{k}": v for k, v in aux_rep.items()})
-            report["total"] += sum(aux_rep.values())
-        return report
+        per component (summed over the shards when sharded)."""
+        reports = self.shard_space_reports()
+        return {k: sum(r[k] for r in reports) for k in reports[0]}
+
+    def shard_space_reports(self) -> list[dict[str, int]]:
+        """:meth:`space_report` of each index (one per shard when
+        sharded), as it lies on its device."""
+        shards = (self._idx,) if self._sharded is None else self._sharded.idx
+        auxes = (self._aux,) if self._sharded is None else \
+            (self._aux or (None,) * len(shards))
+        out = []
+        for idx, aux in zip(shards, auxes):
+            report = wtbc.space_report(idx)
+            if aux is not None:
+                aux_rep = drb.space_report(aux)
+                report.update({f"drb_{k}": v for k, v in aux_rep.items()})
+                report["total"] += sum(aux_rep.values())
+            out.append(report)
+        return out
 
 
 _CTOR_TOKEN = object()

@@ -20,11 +20,17 @@ percentiles.  It runs on the card unless ``--device cpu`` is given:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --docs 250 \
       --vocab 3000 --requests 100 --max-batch 8 --smoke
 
+  # a document-sharded engine: 4 shards (round-robin over the cards)
+  PYTHONPATH=src python -m repro_torch.launch.serve --shards 4 --docs 2000 \
+      --smoke
+
 ``--target-qps 0`` (default) runs the closed-loop shape (``--workers``
 back-to-back clients); a positive value runs the open-loop Poisson shape.
 ``--smoke`` exits non-zero unless the run was healthy (finite p99, zero
-shed, no error or timeout, no executor built after warmup).  ``--shards``
-above 0 exits with an error: sharding arrives with its own slice.
+shed, no error or timeout, no executor built after warmup).  ``--shards N``
+(N > 0) builds a document-sharded engine of N shards
+(``SearchEngine.shard``; shard ``s`` on ``cuda:{s % device_count}``, or all
+on the CPU with ``--device cpu``) and snapshots it like a single one.
 
 Deadlines & SLA classes (DESIGN.md §11): ``--deadline-ms`` asks for
 anytime answers — admission converts the wall target into a pop budget at
@@ -64,7 +70,11 @@ def build_or_load(args) -> SearchEngine:
     print(f"building corpus: {args.docs} docs ...", flush=True)
     cp = corpus.make_corpus(args.docs, args.mean_doc_len, args.vocab,
                             seed=args.seed)
-    engine = SearchEngine.build(cp, device=args.device)
+    if args.shards:
+        engine = SearchEngine.shard(cp, n_shards=args.shards,
+                                    device=args.device)
+    else:
+        engine = SearchEngine.build(cp, device=args.device)
     if args.save_snapshot:
         if not args.snapshot_dir:
             raise SystemExit("--save-snapshot needs --snapshot-dir")
@@ -91,8 +101,8 @@ def main():
     ap.add_argument("--mean-doc-len", type=int, default=300)
     ap.add_argument("--vocab", type=int, default=20000)
     ap.add_argument("--shards", type=int, default=0,
-                    help="0 = single index (sharding arrives with its own "
-                         "slice: any other value exits with an error)")
+                    help="0 = single index; N = a document-sharded engine "
+                         "of N shards")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the engine runs (cpu = the plain PyTorch "
@@ -167,10 +177,8 @@ def main():
                     help="path the periodic/final JSONL snapshots append to "
                          "(default: print to stdout)")
     args = ap.parse_args()
-    if args.shards:
-        raise SystemExit("error: --shards needs document-sharded engines, "
-                         "which arrive with the sharding slice (ROADMAP "
-                         "Queue 1, item 6); run with --shards 0")
+    if args.shards < 0:
+        raise SystemExit(f"error: --shards must be >= 0, got {args.shards}")
 
     metrics_on = (args.metrics or args.metrics_port is not None
                   or args.stats_every > 0)
@@ -196,7 +204,10 @@ def main():
         stats_thread = threading.Thread(target=_stats_loop, daemon=True,
                                         name="obs-stats-jsonl")
 
-    engine = build_or_load(args)
+    try:
+        engine = build_or_load(args)
+    except ValueError as e:       # e.g. more shards than documents
+        raise SystemExit(f"error: {e}")
     print_space_report(engine)
     if args.requests == 0:
         print("no traffic requested (--requests 0); exiting after "

@@ -59,7 +59,10 @@ def sample_queries(engine, n_queries: int, words_per_query: int = 3, *,
     sampling like ``text.corpus.sample_queries``, but corpus-free so a
     snapshot-only server can generate traffic).  ``df_range`` defaults to
     [2, 5% of docs] — the interactive band where queries are selective."""
-    df = engine.idx.df.cpu().numpy()
+    if engine.backend == "sharded":       # the global df, as one index's
+        df = engine.sharded.global_df.cpu().numpy()
+    else:
+        df = engine.idx.df.cpu().numpy()
     lo, hi = df_range or (2, max(3, int(engine.n_docs) // 20))
     pool_ranks = np.flatnonzero((df >= lo) & (df <= hi))
     pool_ranks = pool_ranks[pool_ranks > 0]          # never the '$' separator
@@ -81,6 +84,9 @@ def sample_ngram_queries(engine, n_queries: int, q_len: int = 3, *,
     never co-occur, which would make a positional load test measure only the
     empty-match fast path.  The reference's draws, in its order; every
     n-gram is decoded at once (on the card one ``wtbc_decode`` launch)."""
+    if engine.backend != "single":
+        raise ValueError("n-gram sampling reads the single-host index "
+                         "(positional modes are single-host anyway)")
     idx = engine.idx
     doc_len = idx.doc_len.cpu().numpy()
     eligible = np.flatnonzero(doc_len >= q_len)

@@ -226,8 +226,10 @@ def test_later_slices_raise_not_implemented(port_engine, query_batch):
         res = port_engine.search(query_batch, k=5, **kw)
         assert res.match_pos.shape == res.docs.shape
     assert set(port_engine.word_positions(0, [1])) == {1}
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        SearchEngine.shard([[1, 2]], 2)
+    # document sharding is here now: two shards of one document are refused
+    # as in the reference
+    with pytest.raises(ValueError, match="zero documents"):
+        SearchEngine.shard([[1, 2]], 2, device="cpu")
     # the observability registry is here now: unpinned, the engine records
     # into the live process default
     assert port_engine.obs_registry is None

@@ -60,8 +60,32 @@ def test_cli_rejects_bm25_on_dr_cleanly():
 
 
 def test_cli_rejects_shards_cleanly():
-    r = _serve(*SMALL, "--shards", "2")
+    # --shards N > 0 serves a sharded engine now; a negative count, and more
+    # shards than documents, still exit with a one-line error
+    r = _serve(*SMALL, "--shards", "-1")
     assert r.returncode != 0
-    assert "error: --shards" in r.stderr and "sharding slice" in r.stderr
+    assert "error: --shards" in r.stderr
     assert "Traceback" not in r.stderr
     assert "building corpus" not in r.stdout
+    r = _serve(*SMALL, "--docs", "3", "--shards", "4")
+    assert r.returncode != 0
+    assert "error:" in r.stderr and "zero documents" in r.stderr
+    assert "Traceback" not in r.stderr
+
+
+def test_cli_sharded_smoke_on_the_cpu(tmp_path):
+    """``--shards 4`` builds a document-sharded engine, snapshots it, serves
+    a smoke load, and boots again from the snapshot."""
+    snap = str(tmp_path / "snap")
+    first = _serve(*SMALL, "--shards", "4", "--smoke", "--snapshot-dir",
+                   snap, "--save-snapshot")
+    assert first.returncode == 0, first.stdout + first.stderr[-3000:]
+    assert "smoke: PASS" in first.stdout
+    assert "snapshot committed" in first.stdout
+    assert "executors built after warmup: 0" in first.stdout
+    second = _serve(*SMALL, "--smoke", "--snapshot-dir", snap,
+                    "--mode", "and", "--measure", "bm25")
+    assert second.returncode == 0, second.stdout + second.stderr[-3000:]
+    assert "loading snapshot v1" in second.stdout
+    assert "building corpus" not in second.stdout
+    assert "smoke: PASS" in second.stdout

@@ -4,8 +4,13 @@
 * Snapshots: a bitwise round trip, versions, the format guard, and the
   shared format both ways — a snapshot the reference writes answers in the
   port, and one the port writes answers in the reference, bitwise equal to
-  the other package's own build of the same corpus.
-* The server: rows bitwise equal to the port's direct ``engine.search``
+  the other package's own build of the same corpus.  Sharded snapshots the
+  same: the reference's 4-shard snapshot (written in a subprocess with 4
+  simulated devices) answers in the port within the parity contract, the
+  port's has the reference's manifest, CRCs included, and a 1-shard one
+  answers in the reference.
+* The server (on a single-index and on a sharded engine): rows bitwise
+  equal to the port's direct ``engine.search``
   (the port's results are bitwise equal across batch shapes), and equal to
   the reference ``SearchServer``'s rows within the ROADMAP parity contract
   (tf-idf DR within 1 ulp at B = 1; DRB within Q/2 ulps, BM25 Q/2 + 2).
@@ -16,9 +21,14 @@
 Every wait on a server carries a timeout.
 """
 import json
+import os
+import subprocess
+import sys
+import textwrap
 import threading
 import time
 import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -42,6 +52,7 @@ from test_torch_index import model_arrays, reference_arrays
 
 torch.set_num_threads(1)
 
+ROOT = Path(__file__).resolve().parents[1]
 SPEC = dict(n_docs=100, mean_doc_len=50, vocab_size=400, seed=11)
 BLOCK = 512
 WAIT = 60.0                     # seconds any single wait on a server may take
@@ -259,8 +270,13 @@ def test_snapshot_format_and_config_guards(serve_engine, tmp_path):
     rewrite(kernel_backend="tpu")
     with pytest.raises(ValueError, match="kernel_backend"):
         snapshot.load(tmp_path, device="cpu")
+    rewrite(backend="replicated")
+    with pytest.raises(ValueError, match="backend"):
+        snapshot.load(tmp_path, device="cpu")
+    # sharded snapshots load now: a single index's leaves are not a
+    # sharded one's
     rewrite(backend="sharded", n_shards=4, shard_axes="shards")
-    with pytest.raises(NotImplementedError, match="sharding slice"):
+    with pytest.raises(KeyError, match="no leaf"):
         snapshot.load(tmp_path, device="cpu")
 
 
@@ -303,6 +319,173 @@ def test_port_snapshot_answers_in_the_reference(serve_engine, serve_queries,
             np.testing.assert_array_equal(np.asarray(getattr(a, name)),
                                           np.asarray(getattr(b, name)),
                                           err_msg=f"{combo} {name}")
+
+
+# ---------------------------------------------------------------------------
+# sharded snapshots (the reference at 4 shards runs in one subprocess: its
+# simulated device count locks when JAX starts)
+# ---------------------------------------------------------------------------
+
+SHARDED_COMBOS = [dict(mode="and", strategy="dr", measure="tfidf"),
+                  dict(mode="or", strategy="dr", measure="tfidf"),
+                  dict(mode="or", strategy="drb", measure="bm25"),
+                  dict(mode="and", strategy="drb", measure="tfidf")]
+REFERENCE_SHARDED = textwrap.dedent("""
+    import json, os, sys
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    import numpy as np
+    from repro.engine import EngineConfig, SearchEngine
+    from repro.serve import snapshot
+    from repro.text import corpus
+
+    snap, out, queries = sys.argv[1], sys.argv[2], json.loads(sys.argv[3])
+    cp = corpus.make_corpus(**{spec!r})
+    eng = SearchEngine.shard(cp, n_shards=4,
+                             config=EngineConfig(block={block}))
+    snapshot.save(eng, snap)
+    res = {{}}
+    for m in ("tfidf", "bm25"):
+        res["idf/" + m] = np.asarray(eng._idf_table(eng._resolve_measure(m)))
+    for i, combo in enumerate({combos!r}):
+        r = eng.search(queries, k=8, **combo)
+        for name in ("docs", "scores", "n_found", "work", "pops",
+                     "overflowed", "padded", "certified", "score_bound"):
+            v = getattr(r, name)
+            if v is not None:
+                res[f"{{i}}/{{name}}"] = np.asarray(v)
+    np.savez(out, **res)
+    print("OK")
+""")
+
+
+@pytest.fixture(scope="module")
+def sharded_engine(serve_corpus):
+    return SearchEngine.shard(serve_corpus, 4, EngineConfig(block=BLOCK),
+                              device="cpu")
+
+
+@pytest.fixture(scope="module")
+def reference_sharded(sharded_engine, tmp_path_factory):
+    """The reference's 4-shard engine of the same corpus, written as a
+    snapshot, and its answers to the same queries."""
+    d = tmp_path_factory.mktemp("ref_sharded")
+    queries = loadgen.sample_queries(sharded_engine, 6, 3, seed=8)
+    script = REFERENCE_SHARDED.format(spec=SPEC, block=BLOCK,
+                                      combos=SHARDED_COMBOS)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
+               OMP_NUM_THREADS="1")
+    r = subprocess.run([sys.executable, "-c", script, str(d / "snap"),
+                        str(d / "ref.npz"), json.dumps(queries)], cwd=ROOT,
+                       env=env, capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, \
+        f"stdout:\n{r.stdout}\nstderr:\n{r.stderr[-3000:]}"
+    return d / "snap", np.load(d / "ref.npz"), queries
+
+
+def test_reference_sharded_snapshot_answers_in_the_port(sharded_engine,
+                                                        reference_sharded):
+    """The reference writes a 4-shard snapshot, the port loads it: every
+    answer is bitwise the port's own sharded build's, and, with the
+    reference's idf tables, the reference's within the parity contract
+    (DR bitwise at B = 6, Q = 4; DRB within Q/2 (+2 for BM25) ulps)."""
+    snap, ref, queries = reference_sharded
+    loaded = snapshot.load(snap, device="cpu")
+    assert loaded.backend == "sharded" and loaded.config == \
+        sharded_engine.config
+    assert [i.n_docs for i in loaded.idx] == \
+        [i.n_docs for i in sharded_engine.idx]
+    assert loaded.content_tag == sharded_engine.content_tag
+    for combo in SHARDED_COMBOS:
+        _assert_results_bitwise(loaded.search(queries, k=8, **combo),
+                                sharded_engine.search(queries, k=8, **combo),
+                                combo)
+    for m in ("tfidf", "bm25"):
+        loaded._idf_tables[m] = torch.from_numpy(np.array(ref["idf/" + m]))
+    for i, combo in enumerate(SHARDED_COMBOS):
+        got = loaded.search(queries, k=8, **combo)
+        for name in ("n_found", "work", "pops", "overflowed", "padded",
+                     "certified"):
+            key = f"{i}/{name}"
+            assert (getattr(got, name) is None) == (key not in ref.files)
+            if key in ref.files:
+                np.testing.assert_array_equal(_np(getattr(got, name)),
+                                              ref[key], err_msg=name)
+        tol = 0 if combo["strategy"] == "dr" else \
+            tolerance(combo["measure"], 4)
+        assert_topk_close(got.docs.numpy(), got.scores.numpy(),
+                          ref[f"{i}/docs"], ref[f"{i}/scores"], tol)
+        if combo["strategy"] == "dr":
+            np.testing.assert_array_equal(got.docs.numpy(), ref[f"{i}/docs"])
+        np.testing.assert_array_equal(got.score_bound.numpy(),
+                                      ref[f"{i}/score_bound"])
+
+
+def test_port_sharded_snapshot_manifest_equals_the_references(
+        serve_corpus, sharded_engine, reference_sharded, tmp_path):
+    """The port writes its own 4-shard build: leaf names, dtypes, shapes,
+    CRCs and metadata equal the reference's snapshot of the same corpus;
+    the port loads it back bitwise."""
+    snap, _, queries = reference_sharded
+    snapshot.save(sharded_engine, tmp_path)
+    mp, _ = ckpt.read_manifest(tmp_path)
+    mr, _ = ckpt.read_manifest(snap)
+    assert mp["user_meta"] == mr["user_meta"]
+    assert [(l["name"], l["dtype"], l["shape"], l["crc32"])
+            for l in mp["leaves"]] == \
+        [(l["name"], l["dtype"], l["shape"], l["crc32"]) for l in mr["leaves"]]
+    back = snapshot.load(tmp_path, device="cpu", devices=["cpu"] * 4)
+    res = back.search(queries, k=8, mode="or")
+    _assert_results_bitwise(res, sharded_engine.search(queries, k=8,
+                                                       mode="or"), "or")
+    for b, row in enumerate(back.snippets(res, length=4)):
+        for (d, _), words in zip(res.hits(b), row):
+            np.testing.assert_array_equal(words,
+                                          serve_corpus.doc_tokens[d][:4])
+
+
+def test_port_sharded_snapshot_answers_in_the_reference(serve_corpus,
+                                                        tmp_path):
+    """One shard, so the reference can load it on this process's single
+    device: the reference answers as its own sharded engine does."""
+    port = SearchEngine.shard(serve_corpus, 1, EngineConfig(block=BLOCK),
+                              device="cpu")
+    ref = RSearchEngine.shard(serve_corpus, n_shards=1,
+                              config=REngineConfig(block=BLOCK))
+    snapshot.save(port, tmp_path)
+    loaded = r_snapshot.load(tmp_path)
+    assert loaded.backend == "sharded"
+    queries = loadgen.sample_queries(port, 4, 3, seed=2)
+    for combo in (SHARDED_COMBOS[0], SHARDED_COMBOS[2]):
+        a = loaded.search(queries, k=8, **combo)
+        b = ref.search(queries, k=8, **combo)
+        for name in ("docs", "scores", "n_found", "work"):
+            np.testing.assert_array_equal(np.asarray(getattr(a, name)),
+                                          np.asarray(getattr(b, name)),
+                                          err_msg=f"{combo} {name}")
+
+
+@pytest.mark.parametrize("which", range(4))
+def test_server_rows_on_a_sharded_engine_match_direct(sharded_engine,
+                                                      which):
+    """The server takes a sharded engine as it takes a single one: coalesced
+    rows bitwise equal to a direct search, cache replays included."""
+    queries = loadgen.sample_queries(sharded_engine, 10, 3, seed=6)
+    profile = _profiles(sharded_engine, queries)[which]
+    server = SearchServer(sharded_engine, max_batch=8, max_wait_ms=5.0,
+                          cache_size=16)
+    server.warmup(queries, profile)
+    traces = sum(sharded_engine.stats["traces"].values())
+    with server:
+        rep = loadgen.closed_loop(server, queries * 2, n_workers=8,
+                                  profile=profile, timeout_s=WAIT)
+        rows = {tuple(q): server.search(q, profile, timeout=WAIT)
+                for q in queries}
+    assert rep.n_ok == len(queries) * 2
+    assert rep.server_stats["errors"] == 0
+    assert sum(sharded_engine.stats["traces"].values()) == traces
+    for q, row in rows.items():
+        _assert_rows_bitwise(row, sharded_engine.search(
+            [list(q)], **profile.search_kwargs()))
 
 
 # ---------------------------------------------------------------------------
