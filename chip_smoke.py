@@ -70,7 +70,13 @@ nothing falls back to the CPU):
    batch one ``drb_or`` launch with no other kernel, and each ``snippets``
    call one ``wtbc_decode`` launch with no ``byte_rank`` launch.
 10. timings of the new kernels (device time, wrapper time, plain time,
-   bound, K6's library time; ``drb_walk`` per ``and`` iii batch and per
+   bound, K6's library time; K4 over every document bound, K6 at
+   C = 10^6 and at the DRB ``or`` batch and K3 at 10^6 random ranks
+   (checked bitwise there too) timed cold — the median of CUDA
+   events around one call after a 256 MB write (and a 64 MB read) that
+   flushes the 50 MB L2, the card spinning while the call is enqueued —
+   beside the warm reading and the profiler's, with their libraries'
+   calls timed the same way; ``drb_walk`` per ``and`` iii batch and per
    trip of its longest row, its bound from what the plain walk's selects
    (from the nearer end of the block), documents, counts and ranks of valid
    words read; ``drb_or`` per ``or`` ii and iii batch, its bound from what
@@ -195,16 +201,18 @@ def check(cond: bool, msg: str) -> None:
 # helpers
 # ---------------------------------------------------------------------------
 
-def time_cuda(fn, reps: int, warm: int = 3, setup=None) -> float:
+def time_cuda(fn, reps: int, warm: int = 3, setup=None,
+              median: bool = False) -> float:
     """ms per call of ``fn`` on the card: CUDA events around each call
-    (``setup`` runs outside the timed span), after ``warm`` untimed calls."""
+    (``setup`` runs outside the timed span), after ``warm`` untimed calls;
+    the mean over ``reps`` calls, or their median."""
     import torch
     for _ in range(warm):
         if setup:
             setup()
         fn()
     torch.cuda.synchronize()
-    total = 0.0
+    times = []
     for _ in range(reps):
         if setup:
             setup()
@@ -214,8 +222,59 @@ def time_cuda(fn, reps: int, warm: int = 3, setup=None) -> float:
         fn()
         b.record()
         b.synchronize()
-        total += a.elapsed_time(b)
-    return total / reps
+        times.append(a.elapsed_time(b))
+    return float(np.median(times)) if median else sum(times) / reps
+
+
+FLUSH_BYTES = 256 << 20      # written between cold calls: 5x the 50 MB L2
+FLUSH_READ = 64 << 20        # then read back, so the L2 holds clean lines
+SLEEP_CYCLES = 4_000_000     # about 2 ms at 1.98 GHz: the card waits while
+                             # the host enqueues the timed call
+_FLUSH = []
+
+
+def _flush_l2() -> None:
+    import torch
+    if not _FLUSH:
+        _FLUSH.append(torch.empty(FLUSH_BYTES, dtype=torch.uint8,
+                                  device="cuda"))
+    buf = _FLUSH[0]
+    buf.fill_(1)
+    buf[:FLUSH_READ].sum()
+
+
+def cold_ms(fn, reps: int, warm: int = 2) -> float:
+    """Median ms of ``fn`` on the card with a cold L2: before each timed
+    call ``FLUSH_BYTES`` are written (and ``FLUSH_READ`` of them read back,
+    so the timed call evicts clean lines and pays no write-back), then the
+    card spins ``SLEEP_CYCLES`` so the whole call is enqueued before its
+    first event: the span is the device's time, not the host's."""
+    import torch
+
+    def setup():
+        _flush_l2()
+        torch.cuda._sleep(SLEEP_CYCLES)
+    return time_cuda(fn, reps, warm=warm, setup=setup, median=True)
+
+
+def warm_ms(fn, reps: int, warm: int = 2) -> float:
+    """As ``cold_ms`` without the flush: repeated calls on a warm L2."""
+    import torch
+    return time_cuda(fn, reps, warm=warm,
+                     setup=lambda: torch.cuda._sleep(SLEEP_CYCLES),
+                     median=True)
+
+
+def topk_bound_ms(cands, q, valid, k: int) -> tuple[float, str]:
+    """The least time K6 could take: its inputs read once (the candidates,
+    the mask, q) and its (B, k) outputs written, against the float32
+    multiply-adds of every row's dot."""
+    B = cands.shape[0] if cands.dim() == 3 else 1
+    nbytes = (cands.numel() * cands.element_size() + q.numel() * 4
+              + (0 if valid is None else valid.numel()) + B * k * 8)
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = 2 * cands.numel() / FP32_OPS_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
 PROFILE_SESSIONS = 4   # a torch.profiler session at times records no
@@ -1492,6 +1551,35 @@ def drb_phases(engine, cp, batches, kind) -> tuple[list[dict], int]:
         nb = blocks.numel() * (128 + 4) + 8 * pos.numel()
         bms, by = bound_ms(nb, 32 * pos.numel())
         rows.append(("bitmap_rank1", name, kms, call_ms, pms, bms, by))
+    # K4 and K6 (redesigned for this card), and K3 where its bytes matter
+    # (10^6 random ranks), are timed cold: the figure of their rows; the
+    # warm reading and the profiler's beside it
+    extra = {}
+    pos_m = torch.randint(0, n_bits + 1, (1_000_000,), device=dev,
+                          dtype=torch.int32,
+                          generator=torch.Generator(device=dev).manual_seed(
+                              SEED + 3))
+    got3, want3 = k3(pos_m, "auto"), k3(pos_m, "ref")
+    torch.cuda.synchronize()
+    errs["bitmap_rank1"] = max(errs["bitmap_rank1"],
+                               int((got3 - want3).abs().max()))
+    check(torch.equal(got3, want3), "bitmap_rank1 differs from its plain "
+          "version at 10^6 random positions")
+    call_ms = time_cuda(lambda: k3(pos_m, "auto"), reps=20, warm=3)
+    kms, _ = profile_device(lambda: k3(pos_m, "auto"), 20,
+                            "bitmap_rank1_kernel")
+    c_ms = cold_ms(lambda: k3(pos_m, "auto"), 20)
+    w_ms3 = warm_ms(lambda: k3(pos_m, "auto"), 20)
+    pms = cold_ms(lambda: k3(pos_m, "ref"), 3, warm=1)
+    blocks = torch.unique(torch.clamp(pos_m.long() // 1024,
+                                      max=aux.bv.counts.numel() - 2))
+    bms, by = bound_ms(blocks.numel() * (128 + 4) + 8 * pos_m.numel(),
+                       32 * pos_m.numel())
+    shape3 = f"M={pos_m.numel()} (random)"
+    rows.append(("bitmap_rank1", shape3, c_ms, call_ms, pms, bms, by))
+    extra[shape3] = {"cold_ms": c_ms, "warm_ms": w_ms3, "profiler_ms": kms,
+                     "bound_fraction": bms / c_ms}
+    del got3, want3
     k5_case = k5_snip[0] if k5_snip else k5_sets[0][1]
     for name, case in (("M=%d (snippet decode, level 0)" % k5_case[2].numel(),
                         k5_case),
@@ -1506,45 +1594,65 @@ def drb_phases(engine, cp, batches, kind) -> tuple[list[dict], int]:
         rows.append(("byte_rank", name, kms, call_ms, pms, bms, by))
     call_ms = time_cuda(lambda: k4("auto"), reps=50, warm=5)
     kms, _ = profile_device(lambda: k4("auto"), 20, "segment_tf_kernel")
-    pms = time_cuda(lambda: k4("ref"), reps=5, warm=1)
+    c_ms = cold_ms(lambda: k4("auto"), 30)
+    w_ms4 = warm_ms(lambda: k4("auto"), 30)
+    pms = cold_ms(lambda: k4("ref"), 3, warm=1)
     nb, ops = near_bytes(root, byte4, bounds)
-    bms, by = bound_ms(nb + 8 * bounds.numel(), ops)
-    rows.append(("segment_tf", f"D={bounds.numel() - 1} (every document)",
-                 kms, call_ms, pms, bms, by))
+    bms, by = bound_ms(nb + 4 * bounds.numel() + 4 * (bounds.numel() - 1),
+                       ops)
+    shape4 = f"D={bounds.numel() - 1} (every document)"
+    rows.append(("segment_tf", shape4, c_ms, call_ms, pms, bms, by))
+    extra[shape4] = {"cold_ms": c_ms, "warm_ms": w_ms4, "profiler_ms": kms,
+                     "bound_fraction": bms / c_ms}
     call_ms = time_cuda(lambda: k6("auto"), reps=20, warm=3)
     kms, _ = profile_device(lambda: k6("auto"), 10, "scored_topk_kernel")
-    pms = time_cuda(lambda: k6("ref"), reps=3, warm=1)
-    lib_ms = time_cuda(lambda: torch.topk(torch.mv(cands, qv), K), reps=20,
-                       warm=3)
-    nbytes6 = cands.numel() * 4 + 128 * 4 + 1000 * K * 8
-    t_b, t_o = nbytes6 / HBM_BYTES_PER_S * 1e3, \
-        2 * cands.numel() / FP32_OPS_PER_S * 1e3
-    rows.append(("scored_topk", "C=1000000, d=128, k=10, tile 1024", kms,
-                 call_ms, pms, max(t_b, t_o),
-                 "bytes" if t_b >= t_o else "operations"))
+    c_ms = cold_ms(lambda: k6("auto"), 20)
+    w_ms6 = warm_ms(lambda: k6("auto"), 20)
+    pms = cold_ms(lambda: k6("ref"), 3, warm=1)
+    lib_ms = cold_ms(lambda: torch.topk(torch.mv(cands, qv), K), 20)
+    bms, by = topk_bound_ms(cands, qv, None, K)
+    shape6 = "C=1000000, d=128, k=10, float32"
+    rows.append(("scored_topk", shape6, c_ms, call_ms, pms, bms, by))
+    extra[shape6] = {"cold_ms": c_ms, "warm_ms": w_ms6, "profiler_ms": kms,
+                     "bound_fraction": bms / c_ms, "library_ms": lib_ms}
     # K6 at the DRB or shape: the recorded BM25 batch (compared in phase 8)
     part, w6, ok6, kk6, tl6 = rec_k6.calls[-1]
 
     def k6_drb(kb):
         return topk_score.scored_topk(part, w6, k=kk6, tile=tl6, valid=ok6,
                                       kernel_backend=kb)
+
+    def k6_drb_library():
+        s_ = torch.bmm(part, w6[:, :, None])[..., 0]
+        return torch.topk(s_.masked_fill(~ok6, float("-inf")), kk6)
     call_s = time_cuda(lambda: k6_drb("auto"), reps=100, warm=10)
     kms_s, _ = profile_device(lambda: k6_drb("auto"), 50,
                               "scored_topk_kernel")
-    pms_s = time_cuda(lambda: k6_drb("ref"), reps=10, warm=2)
-    t_b = (part.numel() * 4 + ok6.numel() + w6.numel() * 4 + part.shape[0]
-           * -(-part.shape[1] // tl6) * kk6 * 8) / HBM_BYTES_PER_S * 1e3
-    t_o = 2 * part.numel() / FP32_OPS_PER_S * 1e3
-    rows.append(("scored_topk", f"B={part.shape[0]}, C={part.shape[1]}, "
-                 f"d={part.shape[2]}, k={kk6} (DRB or batch, one launch)",
-                 kms_s, call_s, pms_s, max(t_b, t_o),
-                 "bytes" if t_b >= t_o else "operations"))
+    c_s = cold_ms(lambda: k6_drb("auto"), 50)
+    w_s = warm_ms(lambda: k6_drb("auto"), 50)
+    pms_s = cold_ms(lambda: k6_drb("ref"), 5, warm=1)
+    lib_drb = cold_ms(k6_drb_library, 50)
+    bms_s, by_s = topk_bound_ms(part, w6, ok6, kk6)
+    shape6b = (f"B={part.shape[0]}, C={part.shape[1]}, d={part.shape[2]}, "
+               f"k={kk6} (DRB or batch, one launch)")
+    rows.append(("scored_topk", shape6b, c_s, call_s, pms_s, bms_s, by_s))
+    extra[shape6b] = {"cold_ms": c_s, "warm_ms": w_s, "profiler_ms": kms_s,
+                      "bound_fraction": bms_s / c_s, "library_ms": lib_drb}
+    for shape, x in extra.items():
+        log(f"{shape}: cold {x['cold_ms']:.6f} ms (median, L2 flushed), "
+            f"warm {x['warm_ms']:.6f} ms, profiler {x['profiler_ms']:.6f} ms "
+            f"on the device; {100 * x['bound_fraction']:.1f}% of the bound"
+            + (f"; library {x['library_ms']:.6f} ms cold"
+               if "library_ms" in x else ""))
     for kname, shape, kms, call_ms, pms, bms, by in rows:
-        check(kms > 0, f"the profiler recorded no device time for {kname}")
+        check(kms > 0, f"no device time was recorded for {kname}")
         log(f"{kname} {shape}: kernel {kms:.6f} ms on the device "
             f"({call_ms:.4f} ms per wrapper call), plain {pms:.4f} ms, bound "
             f"{bms:.6f} ms ({by})")
-    log(f"K6 library torch.topk(torch.mv(cands, q), {K}): {lib_ms:.6f} ms")
+    _FLUSH.clear()
+    log(f"K6 library torch.topk(torch.mv(cands, q), {K}): {lib_ms:.6f} ms; "
+        f"at the DRB or shape torch.topk(torch.bmm(...).masked_fill(...), "
+        f"{kk6}): {lib_drb:.6f} ms (both cold)")
     log("DRB launches per batch: " + json.dumps(per_batch))
     # the or batches' device work is a tenth of a millisecond, so their
     # idle share is read over ten searches, against the profiled and an
@@ -1706,9 +1814,12 @@ def drb_phases(engine, cp, batches, kind) -> tuple[list[dict], int]:
                     "bound_ms": bms, "bound_by": by,
                     "library_ms": lib_ms if why is None else None,
                     "library_note": why, "wrapper_ms": call_ms,
+                    **{k_: v for k_, v in extra.get(mine[0][1], {}).items()
+                       if k_ != "library_ms"},
                     "shapes": [{"shape": r[1], "ms": r[2], "wrapper_ms": r[3],
                                 "plain_ms": r[4], "bound_ms": r[5],
-                                "bound_by": r[6]} for r in mine]})
+                                "bound_by": r[6], **extra.get(r[1], {})}
+                               for r in mine]})
     out.append({"name": "drb_walk", "route": "cuda",
                 "source": "src/repro_torch/csrc/drb_walk.cu",
                 "replaces": "src/repro/kernels/bitmap_rank.py:26",

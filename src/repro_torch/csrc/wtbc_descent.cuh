@@ -16,12 +16,11 @@
 //
 // What bounds a count on the H100: memory latency.  Level 0 of an ALL-sized
 // index is larger than the 50 MB L2, so a rank's tile reads often go to HBM,
-// and a count is a chain of dependent ranks.  Two rank primitives:
+// and a count is a chain of dependent ranks.  The rank primitive:
 //
-// * warp_rank (K4): counter cell of p's tile plus the tile prefix
-//   [0, p - blk*block), 512 bytes per warp per loop step.
 // * warp_rank_near (K1, K2, K5, drb_walk; wtbc_decode its rule for two
-//   positions at once): counts from the nearer end of the tile.  With
+//   positions at once, segment_tf for a tile's bounds together): counts
+//   from the nearer end of the tile.  With
 //   valid = min(block, length - blk*block) the tile's logical bytes, a cut
 //   past valid / 2 ranks as counts[blk + 1][byte] minus the suffix
 //   [cut, valid) — the last tile is zero-padded and its counters leave the
@@ -64,34 +63,6 @@ __device__ __forceinline__ int warp_sum(int v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-// Rank of `byte` at position p (already clamped to [0, length]) in one level;
-// every lane of the warp returns the same value.
-__device__ __forceinline__ int warp_rank(const Level& L, int block, int byte,
-                                         int p) {
-  const int lane = threadIdx.x & 31;
-  const int blk = min(p / block, L.n_blocks - 1);
-  const int cut = p - blk * block;                 // bytes of the tile to count
-  const uint8_t* tile = L.data + (size_t)blk * block;
-  const uint32_t pat = 0x01010101u * (uint32_t)byte;
-  int cnt = 0;
-  for (int c = lane * 16; c < cut; c += 32 * 16) {
-    const uint4 v = *reinterpret_cast<const uint4*>(tile + c);
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-    const int rem = cut - c;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int valid = rem - 4 * i;               // bytes of word i to count
-      if (valid > 0) {
-        uint32_t eq = __vcmpeq4(w[i], pat);        // 0xff per equal byte
-        if (valid < 4) eq &= (1u << (8 * valid)) - 1u;
-        cnt += __popc(eq) >> 3;
-      }
-    }
-  }
-  cnt = warp_sum(cnt);
-  return __ldg(L.counts + (size_t)blk * kCounterRow + byte) + cnt;
 }
 
 __device__ __forceinline__ int clamp_pos(int off, int a, int length) {

@@ -3,9 +3,11 @@ bounds.
 
 Replaces the Pallas kernel ``repro/kernels/segment_tf.py`` (``_kernel``).
 For D + 1 sorted bounds it returns ``tf[d] = rank(bounds[d+1]) -
-rank(bounds[d])`` of one byte: one warp per span on the card ranks both of
-its ends and writes the difference (``csrc/segment_tf.cu``); the plain
-version is ``kernels/ref.py:segment_tf_ref``.
+rank(bounds[d])`` of one byte.  On the card (``csrc/segment_tf.cu``) a
+thread block owns 127 spans; one warp per tile that their bounds fall in
+reads the tile once, from each bound's nearer end, and ranks every bound
+once, and the block differences the ranks in shared memory.
+The plain version is ``kernels/ref.py:segment_tf_ref``.
 """
 from __future__ import annotations
 

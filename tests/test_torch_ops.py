@@ -35,7 +35,7 @@ from repro.kernels import ref as r_ref
 from repro.kernels import segment_tf as r_segment_tf
 from repro.kernels import topk_score as r_topk_score
 from repro_torch.core import bitvec, bytemap
-from repro_torch.kernels import backend, ops, ref, topk_score
+from repro_torch.kernels import backend, ops, ref
 
 torch.set_num_threads(1)
 
@@ -192,11 +192,14 @@ def test_scored_topk_ties_go_to_the_lower_row():
 
 
 def test_scored_topk_merge_order_is_total():
-    """The partial merge orders (score desc, row asc) whatever order the
-    partials arrive in."""
-    s = torch.tensor([1.0, 3.0, 3.0, -np.inf, 1.0, 3.0])
-    i = torch.tensor([9, 40, 7, 2**31 - 1, 3, 12], dtype=torch.int32)
-    ts, ti = topk_score.lex_topk(s, i, 5)
+    """The order is (score desc, row asc) whatever rows hold the scores and
+    wherever they lie (the kernel merges its blocks' partials in it)."""
+    cands = torch.zeros((41, 1))
+    rows = [9, 40, 7, 3, 12]
+    cands[rows, 0] = torch.tensor([1.0, 3.0, 3.0, 1.0, 3.0])
+    valid = torch.zeros(41, dtype=torch.bool)
+    valid[rows] = True
+    ts, ti = ops.scored_topk(cands, torch.ones(1), k=5, valid=valid)
     np.testing.assert_array_equal(ti.numpy(), [7, 12, 40, 3, 9])
     np.testing.assert_array_equal(ts.numpy(), [3.0, 3.0, 3.0, 1.0, 1.0])
 
