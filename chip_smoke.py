@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (WTBC-DR, WTBC-DRB,
-positional search, the serving stack and document-sharded search).
+positional search, the serving stack, document-sharded search, the
+quickstart and the LM serving path).
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -154,6 +155,26 @@ nothing falls back to the CPU):
    profile on the loaded engine (DRB ``or`` BM25, phase 13's traffic; one
    ``drb_or`` per shard per served batch), and ``python -m
    repro_torch.launch.serve --shards 4 --docs 2000 --smoke``.
+15. the torch quickstart — ``examples/torch_quickstart.py`` as a user runs
+   it on the card (K1, one ``drb_or``, one ``wtbc_decode``) and on the CPU:
+   its DR ``and``, DRB ``or`` BM25 and snippet answers equal.
+16. the LM serving path (plain PyTorch: it launches none of the port's
+   kernels, and the run checks that).  (a) Every LM config at smoke size
+   in float32 with TF32 off, the same weights on the card and on the CPU
+   (``convert.lm_params_from_jax``): forward logits, prefill caches and 8
+   decode steps within 1e-4 (relative to the logits' scale), and gemma2's
+   smoke prefill at S = 2,048 (the blockwise attention).  (b) qwen3-1.7b at
+   full width in bf16, random weights from a seeded generator on the card:
+   ``prefill`` of 4 x 2,048 tokens, the caches placed into
+   ``init_cache(cfg, 4, 2080)``'s rings, 32 greedy ``decode_step``s, then
+   ``forward`` over the 2,080 tokens: every value finite, each step's
+   logits within 0.25 of the forward's (worst step's mean within 0.03),
+   the greedy tokens equal to its argmax wherever its top-2 margin exceeds
+   0.5.  Prefill ms and tokens/s, decode ms per step and tokens/s, their
+   bounds (bf16 operations; weight and cache bytes), the device's busy
+   share, ``torch.cuda.max_memory_allocated``, and one layer's attention
+   at the prefill's shapes against ``scaled_dot_product_attention`` (a
+   yardstick, never on the path).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1112,6 +1133,8 @@ def main(argv=None) -> int:
     serving = timed_phase("13", serving_phase, engine)
     sharded = timed_phase("14", sharded_phase, engine, cp, batches, results,
                           core_ms)
+    quick = timed_phase("15", quickstart_phase)
+    lm = timed_phase("16", lm_phase)
     log("seconds per phase: " + json.dumps(
         {k_: round(v, 1) for k_, v in phase_s.items()}))
     for k_ in kernels:
@@ -1124,8 +1147,12 @@ def main(argv=None) -> int:
             for label, per in sharded["launches_per_batch"].items()
             if any(k_["name"] in b for b in per)}
         k_["sharded_launches"] = sharded["launches"][k_["name"]]
+        k_["quickstart_launches"] = quick["launches"][k_["name"]]
+        k_["lm_launches"] = lm["launches"][k_["name"]]
     log(json.dumps({"serving": serving}))
     log(json.dumps({"sharded": sharded}))
+    log(json.dumps({"quickstart": quick}))
+    log(json.dumps({"lm": lm}))
     log(json.dumps({"launches": counts,
                     "kernels": [k["name"] for k in kernels]}))
     log(json.dumps({"kernels": kernels}))
@@ -2906,6 +2933,302 @@ def sharded_phase(engine, cp, batches, single_dr, single_ms,
             "merge_device_ms": merge_ms, "merge_wall_ms": merge_wall,
             "snapshot": snap, "served": served,
             "cli": {"s": secs, "summary": summary}}
+
+# ---------------------------------------------------------------------------
+# the torch quickstart (phase 15) and the LM serving path (phase 16)
+# ---------------------------------------------------------------------------
+
+def quickstart_phase(device: str = "cuda") -> dict:
+    """Phase 15: ``examples/torch_quickstart.py`` as a user runs it on the
+    card (launch counters reset just before, read just after), against the
+    same script on the CPU: its DR, DRB and snippet answers equal."""
+    import runpy
+    from repro_torch.kernels import backend
+    path = Path(__file__).resolve().parent / "examples" / "torch_quickstart.py"
+    quick = runpy.run_path(str(path), run_name="torch_quickstart")
+    backend.reset_launch_counts()
+    secs, card = wall_ms(lambda: quick["run"](device), device)
+    counts = backend.launch_counts()
+    cpu = quick["run"]("cpu")
+    for key in ("dr_and", "drb_or_bm25", "snippets"):
+        check(card[key] == cpu[key], f"quickstart {key} differs between "
+              f"{device} and the CPU: {card[key]} vs {cpu[key]}")
+    check(len(card["dr_and"]) == 3 and len(card["snippets"]) == 3,
+          f"quickstart answers: {card}")
+    if device == "cuda":
+        check(counts["wavelet_count"] > 0 and counts["drb_or"] == 1
+              and counts["wtbc_decode"] == 1,
+              f"quickstart launches: {counts}")
+    log(f"quickstart on {device} == on the CPU (DR and {card['dr_and']}, DRB "
+        f"or BM25 {card['drb_or_bm25']}, snippets {card['snippets']}) in "
+        f"{secs:.1f} ms; launches {json.dumps(counts)}")
+    return {"ms": secs, "launches": counts, "answers": card}
+
+
+LM_CONFIGS = ("qwen3_1p7b", "granite_3_8b", "gemma2_9b", "qwen3_moe_235b_a22b",
+              "llama4_scout_17b_a16e")
+LM_FP32_TOL = 1e-4        # card vs CPU, float32 with TF32 off: matmul sum order
+LM_BF16_MAX = 0.25        # decode vs forward, bf16 logits of |x| <= ~5: 8 ulps
+LM_BF16_MEAN = 0.03       # ... and their mean |difference| per step
+LM_B, LM_S, LM_STEPS = 4, 2048, 32
+BF16_OPS_PER_S = 989e12   # H100 SXM data sheet, dense bf16 tensor cores
+
+
+def _lm_err(a, b) -> float:
+    return float((a.float().cpu() - b.float().cpu()).abs().max())
+
+
+def lm_smoke_configs(device: str = "cuda") -> dict:
+    """Phase 16a: every LM config at smoke size in float32, the same weights
+    on the card and on the CPU (the port's own init, carried to both by
+    ``convert.lm_params_from_jax``): forward logits, prefill caches and 8
+    decode steps (rings of 8 slots wrap on the windowed layers), then a
+    prefill at S = 2,048 (the blockwise path) of gemma2's smoke config."""
+    import importlib
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch import convert
+    from repro_torch.models import transformer as T
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    out = {}
+    for mod in LM_CONFIGS:
+        arch = importlib.import_module(f"repro_torch.configs.{mod}").ARCH
+        cfg = arch.config(smoke=True)
+        check(cfg.dtype == torch.float32, f"{mod} smoke config is not fp32")
+        tree = pytree.tree_map(lambda t: t.numpy(), arch.init_params(
+            cfg, seed=SEED, device="cpu"))
+        sides = {d: convert.lm_params_from_jax(tree, cfg, device=d)
+                 for d in (device, "cpu")}
+        toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+            0, cfg.vocab, (2, 16)).astype(np.int32))
+        got = {}
+        for d, params in sides.items():
+            t = toks.to(d)
+            logits, caches = arch.make_step(cfg, "prefill")(params, t)
+            step = arch.make_step(cfg, "decode")
+            ring = T.init_cache(cfg, 2, 16, device=d)
+            dec = []
+            for i in range(8):
+                lg, ring = step(params, ring, t[:, i], i)
+                dec.append(lg)
+            got[d] = (logits, caches, torch.stack(dec), ring)
+        a, b = got[device], got["cpu"]
+        errs = {"forward": _lm_err(a[0], b[0]),
+                "prefill_caches": max(_lm_err(x, y) for pa, pb in
+                                      zip(a[1], b[1]) for x, y in zip(pa, pb)),
+                "decode": _lm_err(a[2], b[2]),
+                "decode_caches": max(_lm_err(x, y) for pa, pb in
+                                     zip(a[3], b[3]) for x, y in zip(pa, pb))}
+        for d in (device, "cpu"):
+            check(bool(torch.isfinite(got[d][0]).all()
+                       and torch.isfinite(got[d][2]).all()),
+                  f"{mod}: non-finite logits on {d}")
+        for what, err in errs.items():
+            check(err <= LM_FP32_TOL * (1 + float(b[0].abs().max())),
+                  f"{mod}: {what} differs between {device} and the CPU by "
+                  f"{err:.3e}")
+        log(f"LM {cfg.name} ({device} vs CPU, fp32): max |err| " +
+            ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+        out[cfg.name] = errs
+    # the blockwise path at smoke widths
+    arch = importlib.import_module("repro_torch.configs.gemma2_9b").ARCH
+    cfg = arch.config(smoke=True)
+    tree = pytree.tree_map(lambda t: t.numpy(), arch.init_params(
+        cfg, seed=SEED + 1, device="cpu"))
+    toks = torch.from_numpy(np.random.default_rng(SEED + 1).integers(
+        0, cfg.vocab, (1, LM_S)).astype(np.int32))
+    res = [T.prefill(convert.lm_params_from_jax(tree, cfg, device=d),
+                     toks.to(d), cfg) for d in (device, "cpu")]
+    err = max(_lm_err(res[0][0], res[1][0]),
+              max(_lm_err(x, y) for pa, pb in zip(res[0][1], res[1][1])
+                  for x, y in zip(pa, pb)))
+    check(err <= LM_FP32_TOL * (1 + float(res[1][0].abs().max())),
+          f"gemma2 smoke prefill at S={LM_S} differs by {err:.3e}")
+    log(f"LM {cfg.name} prefill at S={LM_S} (blockwise) {device} vs CPU: "
+        f"max |err| {err:.3e}")
+    out[f"{cfg.name} S={LM_S}"] = {"prefill": err}
+    return out
+
+
+def lm_full_width(device: str = "cuda") -> dict:
+    """Phase 16b: qwen3-1.7b at full width in bf16 (random weights from a
+    seeded generator on the card): ``prefill`` of B x S = 4 x 2,048 tokens
+    (the blockwise attention), the caches placed into ``init_cache``'s rings
+    of S + 32 slots (slot = pos % S_kv), 32 greedy ``decode_step``s, then
+    ``forward`` over the extended sequence: each step's logits against the
+    forward's at the same position and the greedy tokens against its argmax.
+    Times: prefill and decode by CUDA events, the device's busy share by
+    the profiler, and ``scaled_dot_product_attention`` at the prefill's
+    attention shapes as a yardstick (never on the path)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.utils import _pytree as pytree
+    from repro_torch.configs import qwen3_1p7b
+    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as T
+    arch = qwen3_1p7b.ARCH
+    cfg = arch.config()
+    B, S, N = LM_B, LM_S, LM_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = arch.init_params(cfg, seed=SEED, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    w_bytes = sum(t.numel() * t.element_size()
+                  for t in pytree.tree_leaves(params))
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=device,
+                         dtype=torch.int32)
+    prefill = arch.make_step(cfg, "prefill")
+    decode = arch.make_step(cfg, "decode")
+
+    # ---- prefill: a first call (cuBLAS set-up), then the timed one --------
+    # (the output is dropped at once: a name holding it would keep 6 GB)
+    first_ms = wall_ms(lambda: prefill(params, toks), device)[0]
+    prefill_ms = time_cuda(lambda: prefill(params, toks), reps=3, warm=0,
+                           median=True)
+    logits, pre = prefill(params, toks)
+    check(tuple(logits.shape) == (B, S, cfg.vocab)
+          and logits.dtype == torch.float32, f"prefill logits {logits.shape}")
+    check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
+    check(all(bool(torch.isfinite(x).all()) for p in pre for x in p),
+          "non-finite prefill caches")
+    first = logits[:, -1].argmax(-1).to(torch.int32)
+    del logits
+
+    # ---- the caches placed into decode rings -------------------------------
+    caches = T.init_cache(cfg, B, S + N, device=device)
+    for (pk, pv), (rk, rv) in zip(pre, caches):
+        pos = torch.arange(max(0, S - rk.shape[2]), S, device=device)
+        rk[:, :, pos % rk.shape[2]] = pk[:, :, pos]
+        rv[:, :, pos % rv.shape[2]] = pv[:, :, pos]
+    del pre
+    kv_bytes = sum(x.numel() * x.element_size() for p in caches for x in p)
+
+    # ---- 32 greedy decode steps --------------------------------------------
+    inputs, outs, step_ms = [first], [], []
+    for t in range(N):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        lg, caches = decode(params, caches, inputs[-1], S + t)
+        b.record()
+        outs.append(lg)
+        inputs.append(lg.argmax(-1).to(torch.int32))
+        b.synchronize()
+        step_ms.append(a.elapsed_time(b))
+    dec = torch.stack(outs, 1)                                   # (B, N, V)
+    check(bool(torch.isfinite(dec).all()), "non-finite decode logits")
+
+    # ---- consistency with forward over the extended sequence --------------
+    ext = torch.cat([toks, torch.stack(inputs[:N], 1)], 1)      # (B, S + N)
+    fwd_ms, (full, _aux) = wall_ms(lambda: T.forward(params, ext, cfg),
+                                   device)
+    ref = full[:, S:].clone()
+    del full
+    diff = (dec - ref).abs()
+    max_err, mean_err = float(diff.max()), float(diff.mean(-1).max())
+    top2 = ref.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    agree = ref.argmax(-1) == torch.stack(inputs[1:], 1).long()
+    decided = margin > 2 * LM_BF16_MAX
+    n_agree, n_decided = int(agree.sum()), int(decided.sum())
+    check(max_err <= LM_BF16_MAX and mean_err <= LM_BF16_MEAN,
+          f"decode logits differ from forward's: max |err| {max_err:.4f} "
+          f"(limit {LM_BF16_MAX}), worst step's mean {mean_err:.4f} "
+          f"(limit {LM_BF16_MEAN})")
+    check(bool(agree[decided].all()), "a greedy token differs from forward's "
+          f"argmax where its margin exceeds {2 * LM_BF16_MAX}")
+    log(f"LM qwen3-1.7b full width bf16: decode vs forward over {S + N} "
+        f"tokens: max |err| {max_err:.4f}, worst step's mean |err| "
+        f"{mean_err:.5f} (|logit| <= {float(ref.abs().max()):.2f}); greedy "
+        f"tokens == forward's argmax at {n_agree} of {B * N} steps, at all "
+        f"{n_decided} whose top-2 margin exceeds {2 * LM_BF16_MAX}")
+    del ref, diff
+
+    # ---- where the time goes ------------------------------------------------
+    last = inputs[N - 1]
+    # re-running the last step rewrites its slot with the same key and value
+    step_busy, step_wall, step_top = device_breakdown(
+        lambda: decode(params, caches, last, S + N - 1), 5)
+    pre_busy, pre_wall, pre_top = device_breakdown(
+        lambda: prefill(params, toks), 1)
+    # attention alone at the prefill's shapes: the port's blockwise path
+    # and the library's fused attention (a yardstick, never on the path)
+    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = torch.randn((B, S, H, Dh), generator=gen, device=device,
+                    dtype=cfg.dtype)
+    k = torch.randn((B, S, KV, Dh), generator=gen, device=device,
+                    dtype=cfg.dtype)
+    v = torch.randn((B, S, KV, Dh), generator=gen, device=device,
+                    dtype=cfg.dtype)
+    scale = 1.0 / Dh ** 0.5
+    port_attn = lambda: A._flash_attend(q.reshape(B, S, KV, H // KV, Dh), k, v,
+                                        0, 0, None, scale, A.KV_BLOCK)
+    sdpa = lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True, scale=scale, enable_gqa=True)
+    mine = port_attn().float()
+    lib = sdpa().transpose(1, 2).reshape(mine.shape).float()
+    attn_err = float((mine - lib).abs().max())
+    check(attn_err < 0.05, f"port attention vs SDPA max |err| {attn_err:.4f}")
+    port_attn_ms = time_cuda(port_attn, reps=10, warm=2, median=True)
+    sdpa_ms = time_cuda(sdpa, reps=20, warm=3, median=True)
+    del q, k, v, mine, lib
+
+    peak = torch.cuda.max_memory_allocated()
+    dec_ms = float(np.median(step_ms))
+    # matmul FLOPs: every weight but the embedding lookup, 2 per token;
+    # attention: QK^T and PV over the full S x S square the port computes
+    w_flops = 2 * (cfg.param_count() - cfg.vocab * cfg.d_model) * B * S
+    a_flops = 4 * B * H * S * S * Dh * cfg.n_layers
+    pre_bound = (w_flops + a_flops) / BF16_OPS_PER_S * 1e3
+    dec_bound = (w_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    row = {"params": cfg.param_count(), "weight_bytes": w_bytes,
+           "kv_cache_bytes": kv_bytes, "init_s": init_s,
+           "prefill_first_ms": first_ms, "prefill_ms": prefill_ms,
+           "prefill_tokens_per_s": B * S / prefill_ms * 1e3,
+           "prefill_bound_ms": pre_bound, "prefill_bound_by": "operations",
+           "prefill_device_busy_ms": pre_busy, "prefill_wall_ms": pre_wall,
+           "decode_ms_per_step": dec_ms,
+           "decode_ms_steps": step_ms,
+           "decode_tokens_per_s": B / dec_ms * 1e3,
+           "decode_bound_ms": dec_bound, "decode_bound_by": "bytes",
+           "decode_device_busy_ms": step_busy, "decode_wall_ms": step_wall,
+           "forward_ms": fwd_ms,
+           "attention_port_ms": port_attn_ms, "attention_sdpa_ms": sdpa_ms,
+           "attention_port_vs_sdpa_err": attn_err,
+           "max_memory_allocated": peak,
+           "max_abs_err": max_err, "worst_step_mean_abs_err": mean_err,
+           "greedy_agree": n_agree, "greedy_decided": n_decided,
+           "prefill_top": pre_top, "decode_top": step_top}
+    log(f"LM qwen3-1.7b full width bf16 on {torch.cuda.get_device_name(0)}: "
+        f"{cfg.param_count()} params ({w_bytes} bytes), prefill {B}x{S} "
+        f"{prefill_ms:.2f} ms ({row['prefill_tokens_per_s']:.0f} tokens/s; "
+        f"first call {first_ms:.1f} ms; bound {pre_bound:.2f} ms by bf16 "
+        f"operations; device busy {pre_busy:.2f} of {pre_wall:.2f} ms), decode "
+        f"{dec_ms:.3f} ms per step (median of {N}; {row['decode_tokens_per_s']:.0f}"
+        f" tokens/s; bound {dec_bound:.4f} ms by bytes; device busy "
+        f"{step_busy:.3f} of {step_wall:.3f} ms), forward over {S + N} "
+        f"{fwd_ms:.1f} ms, max_memory_allocated {peak} bytes; attention of "
+        f"one layer at the prefill's shapes: port {port_attn_ms:.3f} ms, "
+        f"scaled_dot_product_attention {sdpa_ms:.3f} ms (yardstick)")
+    log("LM prefill top device kernels (ms): " + json.dumps(pre_top))
+    log("LM decode step top device kernels (ms): " + json.dumps(step_top))
+    return row
+
+
+def lm_phase(device: str = "cuda") -> dict:
+    """Phase 16: the LM serving path (launch counters reset just before,
+    read just after: the path is plain PyTorch and launches none of the
+    port's CUDA kernels)."""
+    from repro_torch.kernels import backend
+    backend.reset_launch_counts()
+    smoke = lm_smoke_configs(device)
+    full = lm_full_width(device) if device == "cuda" else None
+    counts = backend.launch_counts()
+    check(not any(counts.values()), f"the LM path launched {counts}")
+    return {"smoke": smoke, "qwen3-1.7b": full, "launches": counts}
 
 
 if __name__ == "__main__":

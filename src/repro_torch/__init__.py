@@ -9,6 +9,9 @@ their paths is hand-written CUDA C++ (``csrc/``).  Entry points run on the
 card unless the caller asks for the CPU, where every kernel runs its plain
 PyTorch version.
 
+``repro_torch.models`` and ``repro_torch.configs`` port the reference's
+decoder-only LMs for serving (``prefill``, ``decode_step``) in plain PyTorch.
+
     from repro_torch.engine import SearchEngine
     engine = SearchEngine.build(doc_tokens)              # device="cuda"
     results = engine.search(queries, k=10, mode="or")

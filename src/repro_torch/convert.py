@@ -20,6 +20,10 @@ never needs ``repro`` itself:
     (``length``, ``n``, ``n_docs`` and ``n_bits`` too), and the
     ``ShardedWTBC`` fields ``doc_base``, ``global_df``, ``global_idf``,
     ``global_avg_dl``, ``n_shards``.
+``lm_params_from_jax`` (an LM's parameters)
+    the reference's ``init_params`` tree as numpy: ``embed``, ``blocks`` (a
+    list over group positions, every leaf stacked ``(n_groups, ...)``),
+    ``final_norm`` and ``lm_head``.
 """
 from __future__ import annotations
 
@@ -125,3 +129,46 @@ def aux_from_reference(aux_arrays: dict, *, device) -> DRBAux:
     return DRBAux(bv=bv, bit_off=_t(a["bit_off"], np.int32, device),
                   has_bm=_t(a["has_bm"], np.bool_, device),
                   eps=float(a["eps"]))
+
+
+def _leaf_tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":      # ml_dtypes' bfloat16: no numpy kind
+        t = torch.from_numpy(np.array(arr.view(np.uint16))).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr))
+    return t.to(device=device, dtype=dtype)
+
+
+def lm_params_from_jax(tree, cfg, *, device=None) -> dict:
+    """The port's LM parameters on ``device`` (default: the card) from the
+    reference's ``init_params`` tree as numpy (module docstring).  The port
+    keeps the reference's layout, so every leaf maps to the leaf of the same
+    name; each is checked against ``cfg``'s shape and cast to the port's
+    dtype for it (the router stays float32)."""
+    from repro_torch.kernels.backend import resolve_device
+    from repro_torch.models import transformer
+    dev = resolve_device(device)
+    want = transformer.init_params(cfg, device="meta")
+
+    def walk(ref, meta, path):
+        if isinstance(meta, dict):
+            if not isinstance(ref, dict) or set(ref) != set(meta):
+                got = sorted(ref) if isinstance(ref, dict) else type(ref)
+                raise ValueError(f"{path or 'params'}: keys {got}, expected "
+                                 f"{sorted(meta)}")
+            return {k: walk(ref[k], meta[k], f"{path}.{k}".lstrip("."))
+                    for k in meta}
+        if isinstance(meta, list):
+            if len(ref) != len(meta):
+                raise ValueError(f"{path}: {len(ref)} group positions, "
+                                 f"expected {len(meta)}")
+            return [walk(r, m, f"{path}[{i}]")
+                    for i, (r, m) in enumerate(zip(ref, meta))]
+        shape = tuple(np.shape(ref))
+        if shape != tuple(meta.shape):
+            raise ValueError(f"{path}: shape {shape}, expected "
+                             f"{tuple(meta.shape)} for {cfg.name}")
+        return _leaf_tensor(ref, meta.dtype, dev)
+
+    return walk(tree, want, "")
