@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (WTBC-DR, WTBC-DRB,
 positional search, the serving stack, document-sharded search, the
-quickstart and the LM serving path).
+quickstart, the LM serving path, and the recsys towers and EGNN).
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -175,6 +175,30 @@ nothing falls back to the CPU):
    share, ``torch.cuda.max_memory_allocated``, and one layer's attention
    at the prefill's shapes against ``scaled_dot_product_attention`` (a
    yardstick, never on the path).
+17. recsys and GNN (float32, TF32 off; launch counters reset before the
+   phase; the main path's launches are tallied apart from the comparisons
+   and timings, and are K6 alone, once per SASRec retrieval step).  (a)
+   FM, xDeepFM, DLRM and SASRec at smoke size, the same weights on the
+   card and on the CPU: ``serve`` and ``retrieval`` within 1e-5 of the
+   scale (top-k indices equal wherever the scores lie further apart), SASRec's
+   retrieval one ``scored_topk`` launch equal to its plain version on the
+   card; EGNN ``forward`` / ``loss_fn`` on a Cora-like and a molecule
+   graph.  (b) SASRec at full width (10^6 items, d 50, seq 50, 2 blocks):
+   ``serve_p99`` (B = 512) and ``serve_bulk`` (B = 262,144) against the
+   CPU, ``retrieval_cand`` over a seeded permutation of the 10^6 items —
+   K6 bitwise its plain version, the top-100 against a float64 rescoring
+   on the host —, the steps' CUDA-event times, K6 cold beside its bound and
+   ``torch.topk(torch.mv(cands, h), 100)``, the gather, peak memory.  (c)
+   FM and xDeepFM at full width: ``serve_p99`` against the CPU,
+   ``retrieval_cand`` at C = 10^6 in chunks (FM: every score against the
+   CPU's; xDeepFM: the returned 100 rescored, a sample of 4,096 on the
+   CPU).  (d) DLRM-MLPerf at full widths with every table capped at 2^22
+   rows (96.1 GB of tables do not fit the card's 80 GB; listed as
+   ``reduced``): ``serve_p99`` against the CPU.  (e) EGNN at full width on
+   Cora's sizes, a ``graph_sampler`` minibatch (1,024 seeds, fanout
+   (15, 10), from a random graph of Reddit's 232,965 nodes) and 128
+   molecules: ``forward`` and ``loss_fn`` against the CPU, a repeat bitwise,
+   rotation and translation equivariance, forward ms.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1135,6 +1159,8 @@ def main(argv=None) -> int:
                           core_ms)
     quick = timed_phase("15", quickstart_phase)
     lm = timed_phase("16", lm_phase)
+    rs = timed_phase("17", recsys_phase)
+    row["scored_topk"]["sasrec_retrieval"] = rs["sasrec"]["k6"]
     log("seconds per phase: " + json.dumps(
         {k_: round(v, 1) for k_, v in phase_s.items()}))
     for k_ in kernels:
@@ -1149,10 +1175,12 @@ def main(argv=None) -> int:
         k_["sharded_launches"] = sharded["launches"][k_["name"]]
         k_["quickstart_launches"] = quick["launches"][k_["name"]]
         k_["lm_launches"] = lm["launches"][k_["name"]]
+        k_["recsys_launches"] = rs["launches"][k_["name"]]
     log(json.dumps({"serving": serving}))
     log(json.dumps({"sharded": sharded}))
     log(json.dumps({"quickstart": quick}))
     log(json.dumps({"lm": lm}))
+    log(json.dumps({"recsys": rs}))
     log(json.dumps({"launches": counts,
                     "kernels": [k["name"] for k in kernels]}))
     log(json.dumps({"kernels": kernels}))
@@ -3229,6 +3257,681 @@ def lm_phase(device: str = "cuda") -> dict:
     counts = backend.launch_counts()
     check(not any(counts.values()), f"the LM path launched {counts}")
     return {"smoke": smoke, "qwen3-1.7b": full, "launches": counts}
+
+
+# ---------------------------------------------------------------------------
+# phase 17: recsys and GNN
+# ---------------------------------------------------------------------------
+
+RECSYS_MODS = ("fm", "xdeepfm", "dlrm_mlperf", "sasrec")
+RS_REL = 1e-5            # card vs CPU, float32 with TF32 off: matmul sum order
+SASREC_REL = 1e-6        # K6 adds over d left to right, float64 / XLA otherwise
+EQUIV_REL = 1e-4         # rotated + translated coordinates vs the originals
+RS_K = 100
+DLRM_ROW_CAP = 1 << 22   # rows per DLRM table on one card (96.1 GB > 80 GB)
+XDEEPFM_SAMPLE = 4096
+PROFILE_CHUNKS = 16      # chunks of a tabular retrieval under the profiler
+CORA_NODES, CORA_EDGES = 2_708, 10_556          # Cora (full_graph_sm)
+REDDIT_NODES, REDDIT_DEG = 232_965, 50          # Reddit (GraphSAGE's graph)
+MB_SEEDS, MB_FANOUT = 1024, (15, 10)            # minibatch_lg
+
+
+def _rel(a, b) -> float:
+    """max |a - b| over max |b|, in float64 on the host."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def _to(tree, device):
+    from torch.utils import _pytree as pytree
+    return pytree.tree_map(lambda t: t.to(device), tree)
+
+
+def _ms(fn, device: str, reps: int, warm: int = 1) -> float | None:
+    """Median CUDA-event ms of ``fn`` on the card (None on the CPU: a CPU
+    rehearsal measures nothing)."""
+    if device != "cuda":
+        fn()
+        return None
+    return time_cuda(fn, reps=reps, warm=warm, median=True)
+
+
+def _peak(device: str, reset: bool = False) -> int | None:
+    import torch
+    if device != "cuda":
+        return None
+    if reset:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        return None
+    return torch.cuda.max_memory_allocated()
+
+
+class Tally:
+    """The port's kernel launches on the main path only: ``run`` calls a
+    step as a user would and adds its launches to ``counts``; launches made
+    to compare a kernel with its plain version, or to time it, are outside
+    any ``run``."""
+
+    def __init__(self):
+        self.counts: dict[str, int] = {}
+
+    def run(self, fn, *a):
+        from repro_torch.kernels import backend
+        before = backend.launch_counts()
+        out = fn(*a)
+        after = backend.launch_counts()
+        delta = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+        for k, v in after.items():
+            self.counts[k] = self.counts.get(k, 0) + v - before[k]
+        return out, delta
+
+
+def recsys_inputs(cfg, B: int, seed: int, n_cand: int = 0) -> dict:
+    """A CPU batch drawn from ``seed``: SASRec item sequences, or sparse ids
+    inside each table (and dense features); ``n_cand`` candidates, a seeded
+    permutation of the item ids (of table 0's ids for tabular towers)."""
+    import torch
+    rng = np.random.default_rng(seed)
+    if cfg.interaction == "self-attn-seq":
+        b = {"seq": rng.integers(1, cfg.n_items, (B, cfg.seq_len))}
+        hi = cfg.n_items
+    else:
+        rows = np.array(cfg.rows())
+        b = {"sparse": (rng.random((B, cfg.n_sparse)) * rows).astype(np.int64)}
+        if cfg.n_dense:
+            b["dense"] = rng.standard_normal((B, cfg.n_dense))
+        hi = cfg.rows()[0]
+    if n_cand:
+        b["candidates"] = rng.permutation(hi)[:n_cand]
+    return {k: torch.from_numpy(v.astype(np.float32 if v.dtype.kind == "f"
+                                         else np.int32))
+            for k, v in b.items()}
+
+
+def topk_agree(gs, gi, ws, wi, rel: float) -> tuple[float, int]:
+    """Top-k against a reference top-k: (max |score difference| over max
+    |reference score|, positions compared).  Fails unless the scores agree
+    within ``rel`` and the indices are equal wherever the reference's
+    adjacent scores lie further apart than ``rel`` of that scale."""
+    import torch
+    err = _rel(gs, ws)
+    w = ws.detach().double().cpu()
+    gap = (w[:-1] - w[1:]) > rel * float(w.abs().max())
+    apart = torch.ones(w.shape[0], dtype=torch.bool)
+    apart[1:] &= gap
+    apart[:-1] &= gap
+    check(err <= rel, f"top-k scores differ by {err:.3e} of their scale")
+    check(torch.equal(gi.cpu()[apart], wi.cpu()[apart]),
+          "top-k indices differ where the scores are apart")
+    return err, int(apart.sum())
+
+
+def cora_like(cfg, seed: int, n: int, e: int) -> dict:
+    """``full_graph_sm``: a graph of Cora's node and edge counts (skewed
+    sources, uniform destinations, the reference's ``random_graph``
+    recipe), padded to multiples of 4,096; padding edges join the last
+    padding node to itself and padding nodes carry no label."""
+    from repro_torch.configs.base import pad_to
+    from repro_torch.configs.egnn import PAD
+    rng = np.random.default_rng(seed)
+    pn, pe = pad_to(n, PAD), pad_to(e, PAD)
+    edges = np.full((pe, 2), pn - 1, np.int32)
+    edges[:e, 0] = (rng.random(e) ** 2 * n).astype(np.int64)
+    edges[:e, 1] = rng.integers(0, n, e)
+    feats = np.zeros((pn, cfg.d_feat), np.float32)
+    feats[:n] = rng.standard_normal((n, cfg.d_feat))
+    coords = np.zeros((pn, 3), np.float32)
+    coords[:n] = rng.standard_normal((n, 3))
+    labels = np.zeros(pn, np.int32)
+    labels[:n] = rng.integers(0, cfg.n_classes, n)
+    mask = np.zeros(pn, np.float32)
+    mask[:n] = 1.0
+    return {"feats": feats, "coords": coords, "edges": edges,
+            "labels": labels, "label_mask": mask}
+
+
+def molecules(cfg, seed: int, nodes_per: int, edges_per: int) -> dict:
+    """``molecule``: ``cfg.n_graphs`` graphs of ``nodes_per`` nodes and
+    ``edges_per`` random edges each (block diagonal), padded to a multiple
+    of 4,096 nodes; padding nodes belong to graph ``n_graphs``, which the
+    readout drops."""
+    from repro_torch.configs.base import pad_to
+    from repro_torch.configs.egnn import PAD
+    rng = np.random.default_rng(seed)
+    G = cfg.n_graphs
+    n, e = G * nodes_per, G * edges_per
+    pn = pad_to(n, PAD)
+    base = np.repeat(np.arange(G), edges_per) * nodes_per
+    edges = np.stack([rng.integers(0, nodes_per, e) + base,
+                      rng.integers(0, nodes_per, e) + base], 1)
+    feats = np.zeros((pn, cfg.d_feat), np.float32)
+    feats[:n] = rng.standard_normal((n, cfg.d_feat))
+    coords = np.zeros((pn, 3), np.float32)
+    coords[:n] = rng.standard_normal((n, 3))
+    gid = np.full(pn, G, np.int32)
+    gid[:n] = np.repeat(np.arange(G), nodes_per)
+    return {"feats": feats, "coords": coords, "edges": edges.astype(np.int32),
+            "graph_ids": gid,
+            "labels": rng.integers(0, cfg.n_classes, G).astype(np.int32),
+            "label_mask": np.ones(G, np.float32)}
+
+
+def sampled_minibatch(cfg, seed: int, n_nodes: int, deg: int, n_seeds: int,
+                      fanout) -> tuple[dict, float]:
+    """``minibatch_lg``: a seeded random CSR graph (``CSRGraph.random``),
+    ``n_seeds`` seed nodes sampled at ``fanout`` by ``sample_subgraph``,
+    padded to the cell's multiples of 4,096; and the host seconds taken."""
+    from repro_torch.configs.base import pad_to
+    from repro_torch.configs.egnn import PAD, SHAPES
+    from repro_torch.data.graph_sampler import CSRGraph, sample_subgraph
+    t0 = time.perf_counter()
+    g = CSRGraph.random(n_nodes, deg, cfg.d_feat, cfg.n_classes, seed=seed)
+    seeds = np.random.default_rng(seed + 1).choice(n_nodes, n_seeds,
+                                                   replace=False)
+    m = SHAPES["minibatch_lg"]
+    hops = np.cumprod(fanout)
+    pn = pad_to(max(m["nodes"], n_seeds * (1 + int(hops.sum()))), PAD)
+    pe = pad_to(max(m["edges"], n_seeds * int(hops.sum())), PAD)
+    b = sample_subgraph(g, seeds, tuple(fanout), pn, pe, seed=seed + 2)
+    return b, time.perf_counter() - t0
+
+
+def _np_to_torch(b: dict) -> dict:
+    import torch
+    return {k: torch.from_numpy(v) for k, v in b.items()}
+
+
+def egnn_check(shape: str, cfg, graph: dict, device: str, tally: Tally,
+               seed: int, reps: int) -> dict:
+    """EGNN ``forward`` and ``loss_fn`` on ``device`` against the same
+    weights on the CPU, repeated bitwise on the device, a rotation plus a
+    translation of the coordinates (logits unchanged within ``EQUIV_REL``
+    of their scale), and the forward's ms."""
+    import torch
+    from repro_torch.configs import egnn
+    from repro_torch.models import gnn
+    params = egnn.ARCH.init_params(cfg, seed=seed, device=device)
+    cpu = _to(params, "cpu")
+    b = _np_to_torch(graph)
+    bd = _to(b, device)
+    logits, d1 = tally.run(gnn.forward, params, bd, cfg)
+    (loss, _), d2 = tally.run(gnn.loss_fn, params, bd, cfg)
+    check(not d1 and not d2, f"EGNN launched port kernels: {d1} {d2}")
+    n_out = cfg.n_graphs if cfg.graph_readout else graph["feats"].shape[0]
+    check(tuple(logits.shape) == (n_out, cfg.n_classes)
+          and bool(torch.isfinite(logits).all()) and bool(torch.isfinite(loss)),
+          f"EGNN {shape}: logits {tuple(logits.shape)}, loss {float(loss)}")
+    again = gnn.forward(params, bd, cfg)
+    check(torch.equal(again, logits), f"EGNN {shape}: a second forward on "
+          f"{device} differs")
+    err = _rel(logits, gnn.forward(cpu, b, cfg))
+    err_loss = _rel(loss, gnn.loss_fn(cpu, b, cfg)[0])
+    check(err <= RS_REL and err_loss <= RS_REL, f"EGNN {shape}: {device} vs "
+          f"CPU {err:.3e} (loss {err_loss:.3e})")
+    q, _ = np.linalg.qr(np.random.default_rng(seed).standard_normal((3, 3)))
+    qt = torch.from_numpy(q.astype(np.float32)).to(device)
+    moved = dict(bd, coords=bd["coords"] @ qt + 5.0)
+    equiv = _rel(gnn.forward(params, moved, cfg), logits)
+    check(equiv <= EQUIV_REL, f"EGNN {shape}: rotated logits differ by "
+          f"{equiv:.3e} of their scale")
+    ms = _ms(lambda: gnn.forward(params, bd, cfg), device, reps)
+    return {"nodes": int(graph["feats"].shape[0]),
+            "edges": int(graph["edges"].shape[0]), "err": err,
+            "loss": float(loss), "loss_err": err_loss, "equivariance": equiv,
+            "forward_ms": ms}
+
+
+def recsys_smoke(device: str, tally: Tally) -> dict:
+    """Phase 17a: the four recsys towers and EGNN at smoke size, the same
+    weights on ``device`` and on the CPU: ``serve`` (B = 16) and
+    ``retrieval`` (up to 1,000 candidates), EGNN ``forward`` / ``loss_fn``;
+    on the card SASRec's retrieval step is one ``scored_topk`` launch and
+    equals its plain version there bitwise, and no other step launches a
+    port kernel."""
+    import importlib
+    import torch
+    from repro_torch.configs import egnn
+    from repro_torch.models import recsys
+    out = {}
+    for mod in RECSYS_MODS:
+        arch = importlib.import_module(f"repro_torch.configs.{mod}").ARCH
+        cfg = arch.config(smoke=True)
+        cpu = arch.init_params(cfg, seed=SEED, device="cpu")
+        dev = _to(cpu, device)
+        serve = arch.make_step(cfg, "serve")
+        retr = arch.make_step(cfg, "retrieval")
+        b = recsys_inputs(cfg, 16, SEED)
+        got, d = tally.run(serve, dev, _to(b, device))
+        check(not d, f"{cfg.name} serve launched {d}")
+        err_serve = _rel(got, serve(cpu, b))
+        check(err_serve <= RS_REL, f"{cfg.name} serve differs between "
+              f"{device} and the CPU by {err_serve:.3e}")
+        hi = cfg.n_items if cfg.interaction == "self-attn-seq" else cfg.rows()[0]
+        r = recsys_inputs(cfg, 1, SEED + 1, n_cand=min(hi, 1000))
+        rd = _to(r, device)
+        (gs, gi), d = tally.run(retr, dev, rd)
+        sasrec = cfg.interaction == "self-attn-seq"
+        if device == "cuda":
+            check(d == ({"scored_topk": 1} if sasrec else {}),
+                  f"{cfg.name} retrieval launched {d}")
+        if sasrec:
+            rs, ri = recsys.retrieval_scores(dev, rd, cfg, k=RS_K,
+                                             kernel_backend="ref")
+            check(torch.equal(gs, rs) and torch.equal(gi, ri),
+                  f"{cfg.name}: scored_topk differs from its plain version")
+        ws, wi = retr(cpu, r)
+        err_r, n_apart = topk_agree(gs, gi, ws, wi, RS_REL)
+        log(f"recsys {cfg.name} ({device} vs CPU, fp32): serve max |err| "
+            f"{err_serve:.3e} of the scale, retrieval top-{RS_K} scores "
+            f"{err_r:.3e}, indices equal at all {n_apart} positions apart; "
+            f"retrieval launches {json.dumps(d)}")
+        out[cfg.name] = {"serve_err": err_serve, "retrieval_err": err_r,
+                         "retrieval_launches": d}
+    for shape in ("full_graph_sm", "molecule"):
+        cfg = egnn.ARCH.config_for(shape, smoke=True)
+        graph = (cora_like(cfg, SEED, 300, 1200) if shape == "full_graph_sm"
+                 else molecules(cfg, SEED, 6, 10))
+        row = egnn_check(shape, cfg, graph, device, tally, SEED, reps=3)
+        log(f"EGNN smoke {shape} ({device} vs CPU, fp32): max |err| "
+            f"{row['err']:.3e} of the scale, loss {row['loss_err']:.3e}, "
+            f"rotation {row['equivariance']:.3e}")
+        out[f"egnn-smoke {shape}"] = row
+    return out
+
+
+def sasrec_full(device: str, tally: Tally, small: bool = False) -> dict:
+    """Phase 17b: SASRec at full width (10^6 items, d 50, seq 50, 2 blocks),
+    weights from a seed on the card.  ``serve_p99`` (B = 512) against the
+    CPU; ``serve_bulk`` (B = 262,144), its first 512 rows against the CPU;
+    ``retrieval_cand`` over a seeded permutation of the 10^6 item ids: one
+    ``scored_topk`` launch, K6 bitwise its plain version on the card, the
+    top-100 against a float64 rescoring on the host.  Times: the steps by
+    CUDA events, K6 cold (``cold_ms``) beside its bound, the gather and
+    ``torch.topk(torch.mv(cands, h), 100)`` cold, ``max_memory_allocated``."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import sasrec
+    from repro_torch.configs.recsys_common import N_CANDIDATES, SHAPES
+    from repro_torch.kernels import ops
+    arch = sasrec.ARCH
+    cfg = arch.config()
+    bulk_B = SHAPES["serve_bulk"]["batch"]
+    if small:
+        cfg = dataclasses.replace(cfg, n_items=20_000)
+        bulk_B = 2048
+    C = min(N_CANDIDATES, cfg.n_items)
+    _peak(device, reset=True)
+    t0 = time.perf_counter()
+    params = arch.init_params(cfg, seed=SEED, device=device)
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    cpu = _to(params, "cpu")
+    serve = arch.make_step(cfg, "serve")
+    retr = arch.make_step(cfg, "retrieval")
+
+    p99 = recsys_inputs(cfg, SHAPES["serve_p99"]["batch"], SEED + 2)
+    p99d = _to(p99, device)
+    got, d = tally.run(serve, params, p99d)
+    check(not d, f"sasrec serve launched {d}")
+    err_p99 = _rel(got, serve(cpu, p99))
+    check(err_p99 <= RS_REL, f"sasrec serve_p99 {device} vs CPU {err_p99:.3e}")
+    p99_ms = _ms(lambda: serve(params, p99d), device, reps=20, warm=3)
+
+    bulk = _to(recsys_inputs(cfg, bulk_B, SEED + 3), device)
+    got, d = tally.run(serve, params, bulk)
+    check(not d and tuple(got.shape) == (bulk_B, cfg.embed_dim)
+          and bool(torch.isfinite(got).all()), "sasrec serve_bulk output")
+    err_bulk = _rel(got[:512], serve(cpu, {"seq": bulk["seq"][:512].cpu()}))
+    check(err_bulk <= RS_REL, f"sasrec serve_bulk rows vs CPU {err_bulk:.3e}")
+    del got
+    bulk_ms = _ms(lambda: serve(params, bulk), device, reps=3)
+
+    r = recsys_inputs(cfg, 1, SEED + 4, n_cand=C)
+    rd = _to(r, device)
+    (gs, gi), d = tally.run(retr, params, rd)
+    if device == "cuda":
+        check(d == {"scored_topk": 1}, f"sasrec retrieval launched {d}")
+    h = serve(params, {"seq": rd["seq"]})[0]
+    idx = rd["candidates"].long()
+    cands = params["item_emb"][idx]                      # the step's gather
+    ks, ki = ops.scored_topk(cands, h, k=RS_K)
+    rs, ri = ops.scored_topk(cands, h, k=RS_K, kernel_backend="ref")
+    check(torch.equal(ks, rs) and torch.equal(ki, ri),
+          "scored_topk differs from its plain version at SASRec's shape")
+    check(torch.equal(ks, gs) and torch.equal(ki, gi),
+          "the retrieval step differs from scored_topk on its gather")
+    s64 = cpu["item_emb"].double()[r["candidates"].long()] @ h.double().cpu()
+    scale = float(s64.abs().max())
+    want64 = torch.sort(s64, descending=True).values[:RS_K]
+    got64 = torch.sort(s64[gi.long().cpu()], descending=True).values
+    err64 = float((got64 - want64).abs().max()) / scale
+    err_s = float((gs.double().cpu() - s64[gi.long().cpu()]).abs().max()) / scale
+    check(err64 <= SASREC_REL and err_s <= SASREC_REL,
+          f"sasrec top-{RS_K} vs a float64 top-k: {err64:.3e}, scores "
+          f"{err_s:.3e} of the scale")
+    row = {"items": cfg.n_items, "candidates": C, "init_s": init_s,
+           "serve_p99_err": err_p99, "serve_bulk_err": err_bulk,
+           "serve_p99_ms": p99_ms, "serve_bulk_ms": bulk_ms,
+           "serve_bulk_batch": bulk_B, "f64_topk_err": err64,
+           "f64_score_err": err_s, "launches": d}
+    if device == "cuda":
+        step_ms = time_cuda(lambda: retr(params, rd), reps=20, warm=3,
+                            median=True)
+        k6 = lambda: ops.scored_topk(cands, h, k=RS_K)
+        k6_cold = cold_ms(k6, reps=30)
+        k6_warm = warm_ms(k6, reps=30)
+        k6_dev, _ = profile_device(k6, 20, "scored_topk")
+        bms, by = topk_bound_ms(cands, h, None, RS_K)
+        plain = time_cuda(lambda: ops.scored_topk(cands, h, k=RS_K,
+                                                  kernel_backend="ref"),
+                          reps=5, warm=1, median=True)
+        gather_cold = cold_ms(lambda: params["item_emb"][idx], reps=30)
+        gather_bound = (2 * cands.numel() * 4 + idx.numel() * 8) \
+            / HBM_BYTES_PER_S * 1e3
+        lib_cold = cold_ms(lambda: torch.topk(torch.mv(cands, h), RS_K),
+                           reps=30)
+        busy, wall, top = device_breakdown(lambda: retr(params, rd), 20)
+        probe = k6_probe(cands, h, ks, ki)
+        row.update({"retrieval_step_ms": step_ms,
+                    "retrieval_device_busy_ms": busy,
+                    "retrieval_wall_ms": wall, "retrieval_top": top,
+                    "k6_probe": probe, "k6": {
+            "shape": f"C={C}, d={cfg.embed_dim}, k={RS_K}, float32",
+            "launches": 1, "max_abs_err": 0, "ms": k6_cold,
+            "cold_ms": k6_cold, "warm_ms": k6_warm, "device_ms": k6_dev,
+            "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib_cold,
+            "library": f"torch.topk(torch.mv(cands, h), {RS_K})"},
+            "gather_cold_ms": gather_cold, "gather_bound_ms": gather_bound,
+            "max_memory_allocated": _peak(device)})
+        log(f"recsys sasrec full width on {torch.cuda.get_device_name(0)}: "
+            f"serve_p99 {p99_ms:.4f} ms, serve_bulk (B={bulk_B}) "
+            f"{bulk_ms:.3f} ms, retrieval_cand step {step_ms:.4f} ms; K6 at "
+            f"C={C}, d={cfg.embed_dim}, k={RS_K}: cold {k6_cold:.6f} ms "
+            f"(warm {k6_warm:.6f}, profiler {k6_dev:.6f}), bound "
+            f"{bms:.6f} ms ({by}), plain {plain:.4f} ms, "
+            f"torch.topk(torch.mv) cold {lib_cold:.6f} ms; the gather cold "
+            f"{gather_cold:.6f} ms (bound {gather_bound:.6f}); "
+            f"max_memory_allocated {row['max_memory_allocated']} bytes; "
+            f"the step's device busy {busy:.4f} of {wall:.4f} ms wall")
+        log("recsys sasrec retrieval step top device kernels (ms): "
+            + json.dumps(top))
+    log(f"recsys sasrec full width: serve_p99 vs CPU {err_p99:.3e}, "
+        f"serve_bulk rows vs CPU {err_bulk:.3e}; retrieval == scored_topk "
+        f"== its plain version bitwise, top-{RS_K} vs float64 {err64:.3e} "
+        f"(scores {err_s:.3e}) of the scale; launches {json.dumps(d)}")
+    return row
+
+
+def k6_probe(cands, h, ks, ki) -> dict:
+    """Where K6's time goes at SASRec's shape (a diagnosis, not the path):
+    its launch plan and cold ms at k = 10 and 100, on the 200-byte rows
+    (the unstaged path: each lane reads its own row) and on the same rows
+    zero-padded to d = 52 (208 bytes, 16-byte aligned: the staged path;
+    the padding adds +0.0 products, so the top-100 must equal ``(ks, ki)``
+    bitwise)."""
+    import torch
+    from repro_torch.kernels import ops, topk_score
+    C, d = cands.shape
+    d_pad = -(-d * 4 // 16) * 4
+    padded = torch.zeros((C, d_pad), dtype=cands.dtype, device=cands.device)
+    padded[:, :d] = cands
+    h_pad = torch.zeros(d_pad, dtype=h.dtype, device=h.device)
+    h_pad[:d] = h
+    s, i = ops.scored_topk(padded, h_pad, k=RS_K)
+    check(torch.equal(s, ks) and torch.equal(i, ki), "K6 on zero-padded rows "
+          "differs from K6 on the rows")
+    n_sm = torch.cuda.get_device_properties(cands.device).multi_processor_count
+    out = {}
+    for c, q, dd in ((cands, h, d), (padded, h_pad, d_pad)):
+        vec = (dd * 4) % 16 == 0 and c.data_ptr() % 16 == 0
+        for k in (10, RS_K):
+            pl = topk_score.launch_plan(1, C, dd, 4, vec, k, False, n_sm)
+            ms = cold_ms(lambda: ops.scored_topk(c, q, k=k), reps=20)
+            label = f"d={dd} {'staged' if vec else 'unstaged'} k={k}"
+            out[label] = {"cold_ms": ms, "plan": pl._asdict()}
+    log("K6 probe at C=%d (cold ms): " % C + ", ".join(
+        f"{k} {v['cold_ms']:.6f} (gx {v['plan']['gx']}, rows/block "
+        f"{v['plan']['rs']})" for k, v in out.items()))
+    return out
+
+
+def tabular_full(mod: str, device: str, tally: Tally,
+                 small: bool = False) -> dict:
+    """Phase 17c: FM or xDeepFM at full width (39 tables of 1,000,448 x 10),
+    weights from a seed on the card.  ``serve_p99`` against the CPU;
+    ``retrieval_cand`` over a seeded permutation of 10^6 ids, chunked.
+    FM: every candidate's score against the CPU's and the top-100 against
+    the CPU's.  xDeepFM (≈ 69 TFLOP over 10^6 candidates, too slow for the
+    CPU): the card's rescoring of the returned 100 equals them bitwise
+    (a score does not depend on its chunk), the CPU's rescoring of them
+    agrees, and no candidate of a seeded sample of 4,096, other than the
+    returned ones, beats the 100th score on the CPU by more than the
+    tolerance."""
+    import dataclasses
+    import importlib
+    import torch
+    from repro_torch.configs.recsys_common import N_CANDIDATES, SHAPES
+    from repro_torch.models import recsys
+    arch = importlib.import_module(f"repro_torch.configs.{mod}").ARCH
+    cfg = arch.config()
+    if small:
+        cfg = dataclasses.replace(cfg, table_rows=(20_000,) * cfg.n_sparse)
+    C = min(N_CANDIDATES, cfg.rows()[0])
+    _peak(device, reset=True)
+    params = arch.init_params(cfg, seed=SEED, device=device)
+    cpu = _to(params, "cpu")
+    serve = arch.make_step(cfg, "serve")
+    retr = arch.make_step(cfg, "retrieval")
+    p99 = recsys_inputs(cfg, SHAPES["serve_p99"]["batch"], SEED + 5)
+    p99d = _to(p99, device)
+    got, d = tally.run(serve, params, p99d)
+    check(not d, f"{cfg.name} serve launched {d}")
+    err_p99 = _rel(got, serve(cpu, p99))
+    check(err_p99 <= RS_REL, f"{cfg.name} serve_p99 vs CPU {err_p99:.3e}")
+    p99_ms = _ms(lambda: serve(params, p99d), device, reps=20, warm=3)
+
+    r = recsys_inputs(cfg, 1, SEED + 6, n_cand=C)
+    rd = _to(r, device)
+    t0 = time.perf_counter()
+    (gs, gi), d = tally.run(retr, params, rd)
+    _sync(device)
+    first_s = time.perf_counter() - t0
+    check(not d, f"{cfg.name} retrieval launched {d}")
+    check(bool(torch.isfinite(gs).all()), f"{cfg.name}: non-finite scores")
+    row = {"chunk": recsys.retrieval_chunk(cfg), "candidates": C,
+           "serve_p99_err": err_p99, "serve_p99_ms": p99_ms,
+           "retrieval_first_s": first_s}
+    if cfg.interaction == "fm":
+        card_all = recsys.candidate_scores(params, rd, cfg)
+        ts, ti = recsys.top_k(card_all, RS_K)
+        check(torch.equal(ts, gs) and torch.equal(ti, gi),
+              "FM top-k differs from its own scores")
+        t0 = time.perf_counter()
+        cpu_all = recsys.candidate_scores(cpu, r, cfg)
+        row["cpu_all_s"] = time.perf_counter() - t0
+        row["all_err"] = _rel(card_all, cpu_all)
+        check(row["all_err"] <= RS_REL, f"FM scores of every candidate "
+              f"differ from the CPU's by {row['all_err']:.3e}")
+        row["topk_err"], row["n_apart"] = topk_agree(
+            gs, gi, *recsys.top_k(cpu_all, RS_K), RS_REL)
+        note = (f"all {C} scores vs CPU {row['all_err']:.3e}, top-{RS_K} "
+                f"{row['topk_err']:.3e}, indices equal at {row['n_apart']}")
+    else:
+        ret = r["candidates"][gi.long().cpu()]
+        again = recsys.candidate_scores(params, dict(rd, candidates=ret.to(
+            device)), cfg)
+        check(torch.equal(again, gs), f"{cfg.name}: the returned candidates "
+              "rescored on the card differ from their scores")
+        pos = np.random.default_rng(SEED + 7).choice(
+            C, min(XDEEPFM_SAMPLE, C), replace=False)
+        sample = r["candidates"][torch.from_numpy(pos)]
+        t0 = time.perf_counter()
+        cpu_ret = recsys.candidate_scores(cpu, dict(r, candidates=ret), cfg)
+        cpu_smp = recsys.candidate_scores(cpu, dict(r, candidates=sample), cfg)
+        row["cpu_rescore_s"] = time.perf_counter() - t0
+        scale = max(float(cpu_ret.abs().max()), float(cpu_smp.abs().max()))
+        row["returned_err"] = float((gs.cpu() - cpu_ret).abs().max()) / scale
+        # a sampled candidate among the returned ones rightly beats the
+        # 100th: only the others are held to it
+        rest = cpu_smp[~torch.isin(sample, ret)]
+        row["sample_in_top"] = int(len(pos) - rest.numel())
+        row["sample_beats_by"] = (float(rest.max()) - float(gs[-1])) / scale
+        check(row["returned_err"] <= RS_REL, f"{cfg.name}: the returned "
+              f"scores vs the CPU's {row['returned_err']:.3e}")
+        check(row["sample_beats_by"] <= RS_REL, f"{cfg.name}: a sampled "
+              f"candidate beats the {RS_K}th score by "
+              f"{row['sample_beats_by']:.3e} of the scale")
+        note = (f"returned {RS_K} rescored on the card bitwise, on the CPU "
+                f"{row['returned_err']:.3e}; best of {len(pos)} sampled "
+                f"candidates ({row['sample_in_top']} of them returned) vs "
+                f"the {RS_K}th score {row['sample_beats_by']:+.3e}")
+    if device == "cuda":
+        reps = 5 if cfg.interaction == "fm" else 1
+        row["retrieval_step_ms"] = time_cuda(lambda: retr(params, rd),
+                                             reps=reps, warm=0, median=True)
+        row["max_memory_allocated"] = _peak(device)
+        # the step is its chunks in turn: a profile of the first few tells
+        # where a chunk's time goes (a whole step holds 10^4-10^5 kernels,
+        # too many for a quick profiler session)
+        n = PROFILE_CHUNKS * row["chunk"]
+        part = dict(rd, candidates=rd["candidates"][:n])
+        busy, wall, top = device_breakdown(
+            lambda: recsys.candidate_scores(params, part, cfg), 1)
+        row.update({"profiled_candidates": n, "profile_busy_ms": busy,
+                    "profile_wall_ms": wall, "profile_top": top})
+        log(f"recsys {cfg.name} retrieval_cand, its first {PROFILE_CHUNKS} "
+            f"chunks ({n} candidates): device busy {busy:.3f} of {wall:.3f} "
+            f"ms wall; top device kernels (ms) " + json.dumps(top))
+        log(f"recsys {cfg.name} full width: serve_p99 {p99_ms:.4f} ms, "
+            f"retrieval_cand (C={C}, chunks of {row['chunk']}) "
+            f"{row['retrieval_step_ms']:.2f} ms, max_memory_allocated "
+            f"{row['max_memory_allocated']} bytes")
+    log(f"recsys {cfg.name} full width ({device} vs CPU): serve_p99 "
+        f"{err_p99:.3e}; {note}")
+    return row
+
+
+def dlrm_full(device: str, tally: Tally, small: bool = False) -> dict:
+    """Phase 17d: DLRM-MLPerf at full widths (26 tables of embed 128, MLPs
+    13-512-256-128 and 1024-1024-512-256-1) with every table capped at
+    ``DLRM_ROW_CAP`` rows (the published 187,775,488 rows x 128 float32 are
+    96.1 GB, more than the card's 80 GB).  ``serve_p99`` against the CPU,
+    which holds only the rows the batch reads (the batch's ids are inside
+    the capped tables, so no id is clipped)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import dlrm_mlperf
+    from repro_torch.configs.recsys_common import SHAPES
+    from repro_torch.models.recsys import CRITEO_1TB_ROWS
+    arch = dlrm_mlperf.ARCH
+    cap = 4096 if small else DLRM_ROW_CAP
+    cfg = dataclasses.replace(arch.config(), table_rows=tuple(
+        min(r, cap) for r in CRITEO_1TB_ROWS))
+    full_rows = sum(arch.config().rows())
+    reduced = {"table_rows": f"each table capped at {cap} rows: "
+               f"{sum(r > cap for r in CRITEO_1TB_ROWS)} of 26 tables cut, "
+               f"{sum(cfg.rows())} of {full_rows} rows "
+               f"({sum(cfg.rows()) * 128 * 4} of {full_rows * 128 * 4} bytes)",
+               "why": "the published tables (96.1 GB) exceed one H100's 80 GB"}
+    log("reduced (dlrm-mlperf): " + json.dumps(reduced))
+    _peak(device, reset=True)
+    params = arch.init_params(cfg, seed=SEED, device=device)
+    serve = arch.make_step(cfg, "serve")
+    b = recsys_inputs(cfg, SHAPES["serve_p99"]["batch"], SEED + 8)
+    bd = _to(b, device)
+    got, d = tally.run(serve, params, bd)
+    check(not d, f"dlrm serve launched {d}")
+    # the CPU side: each table's rows that the batch reads, ids renumbered
+    tables, sparse = [], b["sparse"].clone()
+    for f, t in enumerate(params["tables"]):
+        u = torch.unique(b["sparse"][:, f].long())
+        tables.append(t[u.to(device)].cpu())
+        sparse[:, f] = torch.searchsorted(u, b["sparse"][:, f].long()).int()
+    cpu = {"tables": tables, "bot": _to(params["bot"], "cpu"),
+           "top": _to(params["top"], "cpu")}
+    err = _rel(got, serve(cpu, {"sparse": sparse, "dense": b["dense"]}))
+    check(err <= RS_REL, f"dlrm serve_p99 vs CPU {err:.3e}")
+    row = {"reduced": reduced, "serve_p99_err": err,
+           "table_bytes": sum(t.numel() * 4 for t in params["tables"])}
+    if device == "cuda":
+        row["serve_p99_ms"] = time_cuda(lambda: serve(params, bd), reps=20,
+                                        warm=3, median=True)
+        row["max_memory_allocated"] = _peak(device)
+        log(f"recsys dlrm-mlperf (capped) serve_p99 {row['serve_p99_ms']:.4f} "
+            f"ms, tables {row['table_bytes']} bytes, max_memory_allocated "
+            f"{row['max_memory_allocated']} bytes")
+    log(f"recsys dlrm-mlperf (capped) serve_p99 {device} vs CPU {err:.3e}")
+    return row
+
+
+def egnn_full(device: str, tally: Tally, small: bool = False) -> dict:
+    """Phase 17e: EGNN at full width (4 layers, H 64) on three graphs:
+    ``full_graph_sm`` at Cora's sizes, ``minibatch_lg`` sampled by
+    ``graph_sampler`` (1,024 seeds at fanout (15, 10) from a seeded random
+    graph of Reddit's 232,965 nodes at mean degree 50), ``molecule`` (128 x
+    30 nodes, 64 edges each); ``egnn_check`` on each."""
+    from repro_torch.configs import egnn
+    out = {}
+    for shape in ("full_graph_sm", "minibatch_lg", "molecule"):
+        cfg = egnn.ARCH.config_for(shape)
+        host_s = None
+        if shape == "full_graph_sm":
+            graph = cora_like(cfg, SEED, CORA_NODES, CORA_EDGES)
+        elif shape == "minibatch_lg":
+            graph, host_s = sampled_minibatch(
+                cfg, SEED, 20_000 if small else REDDIT_NODES,
+                10 if small else REDDIT_DEG, 64 if small else MB_SEEDS,
+                MB_FANOUT)
+        else:
+            graph = molecules(cfg, SEED, 30, 64)
+        _peak(device, reset=True)
+        row = egnn_check(shape, cfg, graph, device, tally, SEED, reps=5)
+        row["sample_s"] = host_s
+        row["max_memory_allocated"] = _peak(device)
+        ms = row["forward_ms"]
+        log(f"EGNN {shape} full width (N={row['nodes']}, E={row['edges']}): "
+            f"{device} vs CPU {row['err']:.3e}, loss {row['loss']:.6f} "
+            f"({row['loss_err']:.3e}), rotation {row['equivariance']:.3e}, "
+            f"repeats bitwise; forward "
+            + (f"{ms:.4f} ms" if ms is not None else "not timed on the CPU")
+            + (f"; sampled in {host_s:.2f} s" if host_s else ""))
+        out[shape] = row
+    return out
+
+
+def recsys_phase(device: str = "cuda", small: bool = False) -> dict:
+    """Phase 17: recsys and GNN (launch counters reset just before, read
+    just after; ``launches`` counts the main path's steps only — the
+    comparisons and timings launch K6 too)."""
+    from repro_torch.kernels import backend
+    backend.reset_launch_counts()
+    tally = Tally()
+    parts = {"smoke": lambda: recsys_smoke(device, tally),
+             "sasrec": lambda: sasrec_full(device, tally, small),
+             "fm": lambda: tabular_full("fm", device, tally, small),
+             "xdeepfm": lambda: tabular_full("xdeepfm", device, tally, small),
+             "dlrm-mlperf": lambda: dlrm_full(device, tally, small),
+             "egnn": lambda: egnn_full(device, tally, small)}
+    out, secs = {}, {}
+    for name, part in parts.items():
+        t0 = time.perf_counter()
+        out[name] = part()
+        secs[name] = round(time.perf_counter() - t0, 1)
+    out["seconds"] = secs
+    log("phase 17 seconds per part: " + json.dumps(secs))
+    out["phase_launches"] = backend.launch_counts()
+    out["launches"] = {k: tally.counts.get(k, 0)
+                       for k in out["phase_launches"]}
+    if device == "cuda":
+        # two SASRec retrieval steps (smoke and full width): one K6 each
+        want = {k: 2 if k == "scored_topk" else 0 for k in out["launches"]}
+        check(out["launches"] == want, f"the recsys / GNN path launched "
+              f"{out['launches']}, expected {want}")
+    log(f"recsys / GNN main path launches {json.dumps(out['launches'])}; "
+        f"with the comparisons and timings {json.dumps(out['phase_launches'])}")
+    return out
 
 
 if __name__ == "__main__":

@@ -10,7 +10,10 @@ card unless the caller asks for the CPU, where every kernel runs its plain
 PyTorch version.
 
 ``repro_torch.models`` and ``repro_torch.configs`` port the reference's
-decoder-only LMs for serving (``prefill``, ``decode_step``) in plain PyTorch.
+decoder-only LMs for serving (``prefill``, ``decode_step``), its recsys
+towers (``serve``, ``retrieval``: SASRec's ranks 10^6 items with the K6
+kernel) and EGNN (``forward``) in PyTorch; ``repro_torch.data`` holds the
+GNN neighbour sampler.
 
     from repro_torch.engine import SearchEngine
     engine = SearchEngine.build(doc_tokens)              # device="cuda"

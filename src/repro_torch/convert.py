@@ -24,6 +24,16 @@ never needs ``repro`` itself:
     the reference's ``init_params`` tree as numpy: ``embed``, ``blocks`` (a
     list over group positions, every leaf stacked ``(n_groups, ...)``),
     ``final_norm`` and ``lm_head``.
+``recsys_params_from_jax`` (a recsys tower's parameters)
+    the reference's ``recsys.init_params`` tree as numpy: SASRec's
+    ``item_emb``, ``pos_emb`` and ``blocks`` (a list of dicts); a tabular
+    tower's ``tables`` (a list, one per sparse feature) and, by interaction,
+    ``linear`` and ``bias`` (FM), ``bot`` / ``top`` (DLRM), ``cin``, ``dnn``,
+    ``out`` and ``linear_w`` (xDeepFM) — each MLP a list of weights.
+``gnn_params_from_jax`` (EGNN's parameters)
+    the reference's ``gnn.init_params`` tree as numpy: ``embed_in``,
+    ``layers`` (a list of dicts of ``phi_e`` / ``phi_x`` / ``phi_h`` weight
+    lists) and ``head``.
 """
 from __future__ import annotations
 
@@ -140,16 +150,10 @@ def _leaf_tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
-def lm_params_from_jax(tree, cfg, *, device=None) -> dict:
-    """The port's LM parameters on ``device`` (default: the card) from the
-    reference's ``init_params`` tree as numpy (module docstring).  The port
-    keeps the reference's layout, so every leaf maps to the leaf of the same
-    name; each is checked against ``cfg``'s shape and cast to the port's
-    dtype for it (the router stays float32)."""
-    from repro_torch.kernels.backend import resolve_device
-    from repro_torch.models import transformer
-    dev = resolve_device(device)
-    want = transformer.init_params(cfg, device="meta")
+def _params_from_jax(tree, want, cfg, dev) -> dict:
+    """Walk the reference's numpy tree against the port's ``meta``
+    parameters ``want``: the same keys and list lengths, the same shape at
+    every leaf; each leaf cast to the port's dtype for it, on ``dev``."""
 
     def walk(ref, meta, path):
         if isinstance(meta, dict):
@@ -160,9 +164,10 @@ def lm_params_from_jax(tree, cfg, *, device=None) -> dict:
             return {k: walk(ref[k], meta[k], f"{path}.{k}".lstrip("."))
                     for k in meta}
         if isinstance(meta, list):
-            if len(ref) != len(meta):
-                raise ValueError(f"{path}: {len(ref)} group positions, "
-                                 f"expected {len(meta)}")
+            if not isinstance(ref, (list, tuple)) or len(ref) != len(meta):
+                got = len(ref) if isinstance(ref, (list, tuple)) else type(ref)
+                raise ValueError(f"{path}: {got} entries, expected "
+                                 f"{len(meta)}")
             return [walk(r, m, f"{path}[{i}]")
                     for i, (r, m) in enumerate(zip(ref, meta))]
         shape = tuple(np.shape(ref))
@@ -172,3 +177,35 @@ def lm_params_from_jax(tree, cfg, *, device=None) -> dict:
         return _leaf_tensor(ref, meta.dtype, dev)
 
     return walk(tree, want, "")
+
+
+def lm_params_from_jax(tree, cfg, *, device=None) -> dict:
+    """The port's LM parameters on ``device`` (default: the card) from the
+    reference's ``init_params`` tree as numpy (module docstring).  The port
+    keeps the reference's layout, so every leaf maps to the leaf of the same
+    name; each is checked against ``cfg``'s shape and cast to the port's
+    dtype for it (the router stays float32)."""
+    from repro_torch.kernels.backend import resolve_device
+    from repro_torch.models import transformer
+    return _params_from_jax(tree, transformer.init_params(cfg, device="meta"),
+                            cfg, resolve_device(device))
+
+
+def recsys_params_from_jax(tree, cfg, *, device=None) -> dict:
+    """A recsys tower's parameters on ``device`` (default: the card) from
+    the reference's ``recsys.init_params`` tree as numpy (module docstring),
+    checked leaf by leaf against ``cfg``'s shapes."""
+    from repro_torch.kernels.backend import resolve_device
+    from repro_torch.models import recsys
+    return _params_from_jax(tree, recsys.init_params(cfg, device="meta"),
+                            cfg, resolve_device(device))
+
+
+def gnn_params_from_jax(tree, cfg, *, device=None) -> dict:
+    """EGNN's parameters on ``device`` (default: the card) from the
+    reference's ``gnn.init_params`` tree as numpy (module docstring),
+    checked leaf by leaf against ``cfg``'s shapes."""
+    from repro_torch.kernels.backend import resolve_device
+    from repro_torch.models import gnn
+    return _params_from_jax(tree, gnn.init_params(cfg, device="meta"),
+                            cfg, resolve_device(device))

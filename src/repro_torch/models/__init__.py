@@ -1,3 +1,4 @@
-"""The model zoo's LM path: layers, attention, MoE and the decoder-only
-transformer (forward, prefill, decode), as plain PyTorch over parameter
-dicts in the reference's layout."""
+"""The model zoo, as plain PyTorch over parameter dicts in the reference's
+layout: layers, attention, MoE and the decoder-only transformer (forward,
+prefill, decode); the recsys towers (serve, retrieval, the loss value); and
+EGNN (forward, the loss value)."""

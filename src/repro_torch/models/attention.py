@@ -49,7 +49,10 @@ class AttnConfig:
 
 
 def init_attn(generator, d_model: int, cfg: AttnConfig, dtype=torch.float32,
-              *, lead: tuple = (), device="cpu") -> dict:
+              *, lead: tuple = (), device=None) -> dict:
+    """The layer's weights on ``device`` (default: the card; ``"meta"``
+    allocates nothing)."""
+    device = L.param_device(device)
     hd, kvd = cfg.n_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head
     kw = dict(lead=lead, device=device)
     p = {

@@ -10,14 +10,23 @@ The reference's sharding rules (``MeshRules``, ``DEFAULT_RULES``,
 no mesh to shard over.
 
 Initializers draw from a ``torch.Generator`` with the reference's
-distributions (dense: normal x ``(1/d_in)^0.5``).  On the ``meta`` device
+distributions (dense: normal x ``(1/d_in)^0.5``).  They put their tensors on
+the card unless the caller passes ``device`` (``"cpu"``, or ``"meta"``, where
 they allocate nothing and draw nothing: that is how the configs describe
-parameters without making them.
+parameters without making them).
+
+``segment_sum`` is the port's ``jax.ops.segment_sum``: a sum over sorted
+segments in a fixed order, the same on the card and on the CPU.
 """
 from __future__ import annotations
 
+import math
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels.backend import resolve_device
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -50,12 +59,28 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def param_device(device) -> torch.device:
+    """Where parameters go: ``meta`` as asked, else ``resolve_device`` (the
+    card unless the caller asks for the CPU; raises without a card)."""
+    return torch.device("meta") if str(device) == "meta" else \
+        resolve_device(device)
+
+
+def generator(seed: int, device) -> torch.Generator | None:
+    """A ``torch.Generator`` on ``device`` seeded with ``seed`` (None on
+    ``meta``, which draws nothing)."""
+    dev = torch.device(device)
+    if dev.type == "meta":
+        return None
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
 def normal(generator: torch.Generator | None, shape, std: float, dtype,
-           device) -> torch.Tensor:
+           device=None) -> torch.Tensor:
     """float32 normal draws times ``std``, cast to ``dtype`` (the reference's
-    ``(normal(key, shape) * std).astype(dtype)``); on ``meta`` an empty
-    tensor of that shape and dtype."""
-    device = torch.device(device)
+    ``(normal(key, shape) * std).astype(dtype)``) on ``device`` (default:
+    the card); on ``meta`` an empty tensor of that shape and dtype."""
+    device = param_device(device)
     if device.type == "meta":
         return torch.empty(tuple(shape), dtype=dtype, device=device)
     z = torch.randn(tuple(shape), generator=generator, dtype=torch.float32,
@@ -65,11 +90,54 @@ def normal(generator: torch.Generator | None, shape, std: float, dtype,
 
 def init_dense(generator: torch.Generator | None, d_in: int, d_out: int,
                dtype=torch.float32, *, lead: tuple = (),
-               device="cpu") -> torch.Tensor:
+               device=None) -> torch.Tensor:
     """A (*lead, d_in, d_out) dense weight: normal x ``(1/d_in)^0.5``;
     ``lead`` stacks one weight per layer group."""
     return normal(generator, (*lead, d_in, d_out), (1.0 / d_in) ** 0.5, dtype,
                   device)
+
+
+class Segments(NamedTuple):
+    """Rows grouped by segment id for ``segment_sum``, made once and reused
+    for every sum over the same ids: ``order`` puts the rows in id order (a
+    stable sort), ``lengths`` (n + 1,) counts each segment's rows, the last
+    count being the dropped rows."""
+    order: torch.Tensor
+    lengths: torch.Tensor
+    n: int
+
+    def sum(self, data: torch.Tensor) -> torch.Tensor:
+        rows = data[self.order]
+        flat = rows.reshape(rows.shape[0], math.prod(data.shape[1:]))
+        out = torch.segment_reduce(flat, "sum", lengths=self.lengths, axis=0,
+                                   unsafe=True)
+        return out[:self.n].reshape((self.n,) + tuple(data.shape[1:]))
+
+
+def segments(ids: torch.Tensor, num_segments: int) -> Segments:
+    """The ``Segments`` of ``ids``; ids outside [0, num_segments) form the
+    dropped segment."""
+    n = int(num_segments)
+    key = ids.long()
+    key = torch.where((key >= 0) & (key < n), key, n)
+    order = torch.sort(key, stable=True).indices
+    lengths = torch.zeros(n + 1, dtype=torch.long, device=key.device)
+    lengths.index_add_(0, key, torch.ones_like(key))
+    return Segments(order, lengths, n)
+
+
+def segment_sum(data: torch.Tensor, ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """``jax.ops.segment_sum``: (num_segments, *data.shape[1:]) sums of the
+    rows of ``data`` by ``ids``; ids outside [0, num_segments) are dropped.
+
+    The rows are stably sorted by id and each segment is summed from zero in
+    the rows' order, left to right — the order of the reference's scatter-add
+    on the CPU and of ``index_add_`` on the CPU.  On the card
+    ``torch.segment_reduce`` sums a 2-D segment one output element per thread
+    in that same order, so the result is deterministic (``index_add_`` on the
+    card adds by atomics, in an order that varies from run to run)."""
+    return segments(ids, num_segments).sum(data)
 
 
 def mlp_apply(params: dict, x: torch.Tensor, act=F.silu,

@@ -47,7 +47,10 @@ class MoEConfig:
 
 
 def init_moe(generator, d_model: int, cfg: MoEConfig, dtype=torch.float32,
-             *, lead: tuple = (), device="cpu") -> dict:
+             *, lead: tuple = (), device=None) -> dict:
+    """The layer's weights on ``device`` (default: the card; ``"meta"``
+    allocates nothing); the router stays float32."""
+    device = L.param_device(device)
     E, F_ = cfg.n_experts, cfg.d_ff
     scale = (1.0 / d_model) ** 0.5
     p = {

@@ -136,12 +136,8 @@ def init_params(cfg: LMConfig, *, seed: int = 0, device=None) -> dict:
     ``device`` (default: the card; ``"meta"`` describes them without
     allocating), with the reference's distributions: dense weights normal x
     ``(1/d_in)^0.5``, embedding and head normal x 0.02, norms zeros."""
-    dev = torch.device("meta") if str(device) == "meta" else \
-        resolve_device(device)
-    gen = None
-    if dev.type != "meta":
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
+    dev = L.param_device(device)
+    gen = L.generator(seed, dev)
     blocks = [_init_blocks(gen, cfg, dev) for _ in cfg.pattern]
     shape = (cfg.vocab, cfg.d_model)
     return {

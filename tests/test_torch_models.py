@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils import _pytree as pytree
 
 from repro.configs import base as rbase
 from repro.configs import lm_common as rlm
@@ -153,15 +154,48 @@ def test_cross_entropy_matches_reference():
 
 def test_init_dense_distribution_and_meta():
     g = torch.Generator().manual_seed(0)
-    w = PL.init_dense(g, 256, 512, torch.bfloat16, lead=(3,))
+    w = PL.init_dense(g, 256, 512, torch.bfloat16, lead=(3,), device="cpu")
     assert w.shape == (3, 256, 512) and w.dtype == torch.bfloat16
     assert abs(float(w.float().std()) - (1 / 256) ** 0.5) < 2e-3
     assert abs(float(w.float().mean())) < 1e-3
     m = PL.init_dense(None, 256, 512, lead=(3,), device="meta")
     assert m.is_meta and m.shape == (3, 256, 512)
     again = PL.init_dense(torch.Generator().manual_seed(0), 256, 512,
-                          torch.bfloat16, lead=(3,))
+                          torch.bfloat16, lead=(3,), device="cpu")
     assert torch.equal(w, again)
+
+
+INIT_HELPERS = {
+    "normal": lambda g, **kw: PL.normal(g, (4, 8), 0.02, torch.float32, **kw),
+    "init_dense": lambda g, **kw: PL.init_dense(g, 4, 8, **kw),
+    "init_attn": lambda g, **kw: PA.init_attn(
+        g, 16, PA.AttnConfig(n_heads=2, n_kv_heads=1, d_head=8, qk_norm=True),
+        **kw),
+    "init_moe": lambda g, **kw: PM.init_moe(
+        g, 16, PM.MoEConfig(n_experts=2, top_k=1, d_ff=8, n_shared=1), **kw),
+}
+
+
+@pytest.mark.parametrize("name", list(INIT_HELPERS))
+def test_init_helpers_default_to_the_card(name):
+    """With no ``device`` the init helpers resolve to the card, as every
+    other entry point of the port does: without a card they raise
+    ``resolve_device``'s error.  ``device="cpu"`` and ``"meta"`` still work."""
+    make = INIT_HELPERS[name]
+    leaves = lambda t: (pytree.tree_leaves(t) if isinstance(t, dict) else [t])
+    if torch.cuda.is_available():
+        out = make(torch.Generator(device="cuda").manual_seed(0))
+        assert all(t.is_cuda for t in leaves(out))
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make(torch.Generator().manual_seed(0))
+    cpu = make(torch.Generator().manual_seed(0), device="cpu")
+    assert all(t.device.type == "cpu" for t in leaves(cpu))
+    again = make(torch.Generator().manual_seed(0), device="cpu")
+    assert all(torch.equal(a, b) for a, b in zip(leaves(cpu), leaves(again)))
+    meta = make(None, device="meta")
+    assert all(t.is_meta for t in leaves(meta))
+    assert [t.shape for t in leaves(meta)] == [t.shape for t in leaves(cpu)]
 
 
 # ---------------------------------------------------------------------------
