@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (WTBC-DR, WTBC-DRB,
 positional search, the serving stack, document-sharded search, the
-quickstart, the LM serving path, and the recsys towers and EGNN).
+quickstart, the LM serving path, the recsys towers and EGNN, and training).
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -199,6 +199,30 @@ nothing falls back to the CPU):
    (15, 10), from a random graph of Reddit's 232,965 nodes) and 128
    molecules: ``forward`` and ``loss_fn`` against the CPU, a repeat bitwise,
    rotation and translation equivariance, forward ms.
+18. training (plain PyTorch and autograd: it launches none of the port's
+   kernels, and the run checks that).  (a) ``make_step(cfg, "train")`` of
+   each of the ten smoke configs (five LMs, FM, xDeepFM, DLRM, SASRec,
+   EGNN; float32, TF32 off) on the card and on the CPU from the same
+   parameters, optimizer state and batch: loss, metrics, grad_norm and lr
+   within 1e-5, 99.9% of the updated parameters within 1e-3 x lr and all
+   within AdamW's step bound.  (b) ``run_with_restarts`` on qwen3's smoke
+   config in bf16 on the card, failures at steps 3 and 11: the 14 losses
+   and the final state bitwise the uninterrupted run's.  (c) ``python -m
+   repro_torch.launch.train --arch qwen3-1.7b --steps 20``, then ``--steps
+   25 --resume``: both end in ``done``, the second resumes from step 20.
+   (d) qwen3-1.7b at full width and depth, bf16, remat, the default AdamW,
+   B x S = 2 x 4,096 (train_4k's S; B cut from 256 by one card, printed as
+   ``reduced``) from ``pipeline.lm_batch``, five steps on one batch: step
+   0's loss equals the forward-only ``loss_fn`` (bf16 tolerance) and lies
+   within 1.0 of ln V; step 0 twice from one state bitwise; grad_norm
+   finite and lr equal to ``schedule`` every step; the loss falls from step
+   0 to step 4; step 1's update on three sampled leaves (embedding rows, an
+   attention and an MLP weight) within 1 bf16 ulp of a float64 AdamW from
+   the saved g, m and v.  ms per step, tokens/s, the model FLOPs share of
+   989 TFLOP/s (6 N tokens over the matmul weights, the remat forward,
+   attention's four passes), device busy time and top kernels,
+   ``torch.cuda.max_memory_allocated``, beside the card's name and power
+   limit.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1161,6 +1185,7 @@ def main(argv=None) -> int:
     lm = timed_phase("16", lm_phase)
     rs = timed_phase("17", recsys_phase)
     row["scored_topk"]["sasrec_retrieval"] = rs["sasrec"]["k6"]
+    tr = timed_phase("18", train_phase)
     log("seconds per phase: " + json.dumps(
         {k_: round(v, 1) for k_, v in phase_s.items()}))
     for k_ in kernels:
@@ -1176,11 +1201,13 @@ def main(argv=None) -> int:
         k_["quickstart_launches"] = quick["launches"][k_["name"]]
         k_["lm_launches"] = lm["launches"][k_["name"]]
         k_["recsys_launches"] = rs["launches"][k_["name"]]
+        k_["train_launches"] = tr["launches"][k_["name"]]
     log(json.dumps({"serving": serving}))
     log(json.dumps({"sharded": sharded}))
     log(json.dumps({"quickstart": quick}))
     log(json.dumps({"lm": lm}))
     log(json.dumps({"recsys": rs}))
+    log(json.dumps({"train": tr}))
     log(json.dumps({"launches": counts,
                     "kernels": [k["name"] for k in kernels]}))
     log(json.dumps({"kernels": kernels}))
@@ -3931,6 +3958,372 @@ def recsys_phase(device: str = "cuda", small: bool = False) -> dict:
               f"{out['launches']}, expected {want}")
     log(f"recsys / GNN main path launches {json.dumps(out['launches'])}; "
         f"with the comparisons and timings {json.dumps(out['phase_launches'])}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 18: training
+# ---------------------------------------------------------------------------
+
+TRAIN_MODS = LM_CONFIGS + RECSYS_MODS + ("egnn",)
+TRAIN_REL = 1e-5         # card vs CPU, float32 with TF32 off: sum order
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 4096, 5
+TRAIN_BF16 = dict(rtol=5e-2, atol=5e-2)    # tests/test_torch_models.py BF16
+
+
+def _train_batch(arch, cfg, seed: int, step: int, device) -> dict:
+    from repro_torch.data import pipeline
+    if arch.family == "lm":
+        return pipeline.lm_batch(seed, step, 2, 32, cfg.vocab, device=device)
+    if arch.family == "recsys":
+        return pipeline.recsys_batch(seed, step, 64, cfg, device=device)
+    return pipeline.random_graph(seed, 400, 1600, cfg.d_feat, cfg.n_classes,
+                                 pad_nodes=512, pad_edges=2048, device=device)
+
+
+def _step_agree(after_dev, after_cpu, before, lr: float, wd: float
+                ) -> tuple[float, float]:
+    """(share of elements within 1e-3 x lr + 1e-6 |p| of the CPU's, the
+    largest difference over AdamW's bound on a step, 2 lr (1 + wd |p|))."""
+    from repro_torch.checkpoint import ckpt
+    n_ok = n_all = 0
+    worst = 0.0
+    for (_, x), (_, y), (_, p0) in zip(ckpt.flatten_with_names(after_dev),
+                                       ckpt.flatten_with_names(after_cpu),
+                                       ckpt.flatten_with_names(before)):
+        err = (x.double().cpu() - y.double()).abs()
+        n_ok += int((err <= 1e-3 * lr + 1e-6 * y.double().abs()).sum())
+        n_all += err.numel()
+        bound = 2 * lr * (1 + wd * float(p0.double().abs().max()))
+        worst = max(worst, float(err.max()) / bound)
+    return n_ok / n_all, worst
+
+
+def train_smoke_configs(device: str = "cuda") -> dict:
+    """Phase 18a: one ``make_step(cfg, "train")`` of each of the ten smoke
+    configs (float32, TF32 off) on the card and on the CPU from the same
+    parameters, optimizer state and batch: loss, metrics, grad_norm and lr
+    within 1e-5 (relative; of 1 for values below 1), 99.9% of the updated
+    parameters within 1e-3 x lr of the CPU's and every one within AdamW's
+    bound on a step (an element whose gradient is float32 noise around 0
+    may step either way)."""
+    import importlib
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.optim import adamw
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    out = {}
+    for mod in TRAIN_MODS:
+        arch = importlib.import_module(f"repro_torch.configs.{mod}").ARCH
+        cfg = arch.config(smoke=True)
+        cpu = arch.init_params(cfg, seed=SEED, device="cpu")
+        dev = pytree.tree_map(lambda t: t.to(device, copy=True), cpu)
+        before = pytree.tree_map(lambda t: t.clone(), cpu)
+        b = _train_batch(arch, cfg, SEED, 0, "cpu")
+        step = arch.make_step(cfg, "train")
+        cpu, _, mc = step(cpu, adamw.init_state(cpu), b)
+        dev, od, md = step(dev, adamw.init_state(dev),
+                           {k: v.to(device) for k, v in b.items()})
+        check(all(t.device.type == torch.device(device).type
+                  for t in pytree.tree_leaves((dev, od, md))),
+              f"{mod}: a train step's output left {device}")
+        errs = {k: abs(float(md[k]) - float(mc[k])) / max(abs(float(mc[k])),
+                                                          1.0) for k in mc}
+        for k, e in errs.items():
+            check(np.isfinite(float(md[k])) and e <= TRAIN_REL,
+                  f"{mod}: train metric {k} {float(md[k])} on {device} vs "
+                  f"{float(mc[k])} on the CPU")
+        lr = float(mc["lr"])
+        share, worst = _step_agree(dev, cpu, before, lr,
+                                   arch.optimizer_cfg().weight_decay)
+        check(share >= 0.999 and worst <= 1.0,
+              f"{mod}: updated parameters on {device} vs the CPU: {share:.5f} "
+              f"within 1e-3 lr, worst {worst:.3f} of the step bound")
+        out[cfg.name] = {"loss": float(md["loss"]), "metric_rel_err": errs,
+                         "params_within_1e-3_lr": share,
+                         "worst_over_step_bound": worst}
+        log(f"train {cfg.name} ({device} vs CPU): loss {float(md['loss']):.5f},"
+            f" grad_norm {float(md['grad_norm']):.4f}, max metric rel err "
+            f"{max(errs.values()):.2e}; parameters {share:.5f} within 1e-3 lr,"
+            f" worst {worst:.2e} of the step bound")
+    return out
+
+
+def train_restarts(device: str = "cuda") -> dict:
+    """Phase 18b: ``run_with_restarts`` on qwen3-1.7b's smoke config in bf16
+    on ``device``, 14 steps, checkpoints every 5, failures injected at
+    steps 3 and 11 (before the first checkpoint and mid-interval): every
+    step's metrics and the final state bitwise equal to the uninterrupted
+    run's."""
+    import dataclasses
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import qwen3_1p7b
+    from repro_torch.data import pipeline
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import fault_tolerance as ft
+    arch = qwen3_1p7b.ARCH
+    cfg = dataclasses.replace(arch.config(smoke=True), dtype=torch.bfloat16)
+    step = arch.make_step(cfg, "train")
+    params = arch.init_params(cfg, seed=SEED, device=device)
+    init = {"params": params, "opt": adamw.init_state(params)}
+    batch_fn = lambda s: pipeline.lm_batch(SEED, s, 4, 64, cfg.vocab,  # noqa: E731
+                                           device=device)
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, failures in (("clean", ()), ("faulty", (3, 11))):
+            log_ = []
+            final = ft.run_with_restarts(init, 14, step, batch_fn,
+                                         f"{tmp}/{label}", ckpt_every=5,
+                                         failures=failures, metrics_log=log_)
+            runs[label] = (dict(log_), len(log_), final)
+    clean, faulty = runs["clean"], runs["faulty"]
+    check(clean[0] == faulty[0], "run_with_restarts: the loss curve with two "
+          "failures differs from the uninterrupted one")
+    check(faulty[1] == 14 + 4 + 2, f"run_with_restarts ran {faulty[1]} steps,"
+          " expected 20 (steps 0-3 and 10-11 again)")
+    same = all(torch.equal(a, b) and a.device.type == torch.device(device).type
+               for (_, a), (_, b) in zip(ckpt.flatten_with_names(clean[2]),
+                                         ckpt.flatten_with_names(faulty[2])))
+    check(same, "run_with_restarts: the final state differs")
+    losses = [clean[0][s]["loss"] for s in range(14)]
+    log(f"train restarts on {device}: failures at 3 and 11, {faulty[1]} steps "
+        f"run, the 14 losses bitwise the uninterrupted run's "
+        f"({losses[0]:.5f} -> {losses[-1]:.5f}), the final state too")
+    return {"steps_run": faulty[1], "losses": losses}
+
+
+def train_cli(device: str = "cuda") -> dict:
+    """Phase 18c: ``python -m repro_torch.launch.train --arch qwen3-1.7b
+    --steps 20``, then ``--steps 25 --resume``, each in a subprocess on
+    ``device``: both end in ``done``, the second resumes from step 20."""
+    import os
+    import tempfile
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, extra in (("first", ["--steps", "20"]),
+                             ("resume", ["--steps", "25", "--resume"])):
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                                "--arch", "qwen3-1.7b", "--ckpt-dir", tmp,
+                                "--device", device, *extra], cwd=root, env=env,
+                               capture_output=True, text=True, timeout=300)
+            secs = time.perf_counter() - t0
+            lines = r.stdout.strip().splitlines()
+            check(r.returncode == 0 and lines and lines[-1] == "done",
+                  f"launch.train {label} failed (rc {r.returncode}): "
+                  f"{r.stdout[-1500:]} {r.stderr[-3000:]}")
+            out[label] = {"s": round(secs, 1), "lines": lines}
+            log(f"launch.train {' '.join(extra)}: {secs:.1f} s, last lines "
+                f"{lines[-3:]}")
+    check(out["resume"]["lines"][0] == "resumed from step 20",
+          f"launch.train --resume: {out['resume']['lines'][:2]}")
+    return out
+
+
+def _bf16_ulp(x: np.ndarray) -> np.ndarray:
+    """The spacing of bf16 values at |x| (8 significant bits)."""
+    e = np.floor(np.log2(np.maximum(np.abs(x), 2.0 ** -126)))
+    return 2.0 ** (e - 7)
+
+
+def train_full_width(device: str = "cuda", small: bool = False) -> dict:
+    """Phase 18d: qwen3-1.7b at full width and depth in bf16 with remat,
+    ``arch.make_step(cfg, "train")`` with the default AdamW config, on B x S
+    = 2 x 4,096 tokens from ``pipeline.lm_batch`` (train_4k's S; B cut from
+    256 by one card), five steps on one repeated batch.  Checks: step 0's
+    loss equals ``loss_fn`` forward-only under ``no_grad`` (bf16 tolerance)
+    and lies within 1.0 of ln V; step 0 run twice from the same state gives
+    bitwise equal parameters; ``grad_norm`` finite and ``lr`` equal to
+    ``schedule`` on every step; the loss falls from step 0 to step 4; on
+    three sampled leaves (embedding rows, one attention and one MLP weight)
+    step 1's update equals a float64 recomputation of AdamW from the saved
+    g, m and v within 1 bf16 ulp of the parameter.  ``small`` shrinks the
+    model and the batch for a CPU rehearsal (no timings)."""
+    import dataclasses
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.configs import base, qwen3_1p7b
+    from repro_torch.data import pipeline
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    arch = qwen3_1p7b.ARCH
+    cfg = arch.config()
+    B, S = TRAIN_B, TRAIN_S
+    if small:
+        cfg = dataclasses.replace(cfg, n_layers=3, d_model=128, n_heads=4,
+                                  n_kv_heads=2, d_head=32, d_ff=256,
+                                  vocab=4096)
+        S = 128
+    check(cfg.remat and cfg.dtype == torch.bfloat16, f"config {cfg}")
+    ocfg = arch.optimizer_cfg()
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = arch.init_params(cfg, seed=SEED, device=device)
+    sync()
+    init_s = time.perf_counter() - t0
+    p0 = pytree.tree_map(lambda t: t.clone(), params)
+    batch = pipeline.lm_batch(SEED, 0, B, S, cfg.vocab, device=device)
+    step = arch.make_step(cfg, "train")
+    with torch.no_grad():
+        fwd_loss = float(T.loss_fn(params, batch, cfg)[0])
+
+    def timed_step(opt):
+        t = time.perf_counter()
+        out = step(params, opt, batch)
+        float(out[2]["loss"])                 # waits for the step
+        return out, (time.perf_counter() - t) * 1e3
+
+    # ---- step 0, twice from the same state: bitwise -----------------------
+    (_, opt, m0), first_ms = timed_step(adamw.init_state(params))
+    loss0 = float(m0["loss"])
+    tol = TRAIN_BF16["atol"] + TRAIN_BF16["rtol"] * abs(fwd_loss)
+    check(abs(loss0 - fwd_loss) <= tol, f"step 0 loss {loss0} vs forward-only "
+          f"{fwd_loss} (tolerance {tol})")
+    ln_v = float(np.log(cfg.vocab))
+    check(abs(loss0 - ln_v) <= 1.0, f"step 0 loss {loss0}, ln V = {ln_v:.3f}")
+    after0 = pytree.tree_map(lambda t: t.clone(), params)
+    del opt
+    with torch.no_grad():
+        for a, b in zip(pytree.tree_leaves(params), pytree.tree_leaves(p0)):
+            a.copy_(b)
+    del p0
+    (_, opt, m0b), _ = timed_step(adamw.init_state(params))
+    repeat_ok = all(torch.equal(a, b) for a, b in
+                    zip(pytree.tree_leaves(params), pytree.tree_leaves(after0)))
+    repeat_ok &= all(torch.equal(m0[k], m0b[k]) for k in m0)
+    check(repeat_ok, "step 0 from the same state twice: parameters or metrics "
+          "differ")
+    del after0
+
+    # ---- step 1: AdamW against float64 on three sampled leaves -------------
+    rows = min(cfg.vocab, 4096)
+    pick = {"embed[:4096]": lambda t: t["embed"][:rows],
+            "blocks[0].attn.wq[layer 3]":
+                lambda t: t["blocks"][0]["attn"]["wq"][min(3, cfg.n_groups - 1)],
+            "blocks[0].mlp.wo[layer 5]":
+                lambda t: t["blocks"][0]["mlp"]["wo"][min(5, cfg.n_groups - 1)]}
+    f64 = lambda t: t.detach().double().cpu().numpy()  # noqa: E731
+    saved = {n: (f64(f(params)), f64(f(opt.m)), f64(f(opt.v)))
+             for n, f in pick.items()}
+    grads, _, _ = base.gradients(T.loss_fn, params, batch, cfg)
+    g_norm = adamw.global_norm(grads)
+    g_saved = {n: f64(f(grads)) for n, f in pick.items()}
+    del grads
+    (_, opt, m1), _ = timed_step(opt)
+    check(torch.equal(m1["grad_norm"], g_norm), "step 1's grad_norm differs "
+          "from a separate gradient pass on the same state")
+    gn, lr, t = float(m1["grad_norm"]), float(m1["lr"]), int(opt.step)
+    scale = min(1.0, ocfg.clip_norm / max(gn, 1e-9))
+    adam = {}
+    for n, f in pick.items():
+        p, m, v = saved[n]
+        g = g_saved[n] * scale
+        m = ocfg.b1 * m + (1 - ocfg.b1) * g
+        v = ocfg.b2 * v + (1 - ocfg.b2) * g * g
+        mh, vh = m / (1 - ocfg.b1 ** t), v / (1 - ocfg.b2 ** t)
+        want = p - lr * (mh / (np.sqrt(vh) + ocfg.eps) + ocfg.weight_decay * p)
+        got = f64(f(params))
+        ulps = float((np.abs(got - want) / _bf16_ulp(want)).max())
+        moved = float((got != p).mean())
+        m_err = float(np.abs(f64(f(opt.m)) - m).max() / max(np.abs(m).max(),
+                                                            1e-30))
+        check(ulps <= 1.0 and m_err <= 1e-5, f"AdamW on {n}: {ulps:.3f} bf16 "
+              f"ulps from float64, m within {m_err:.2e}")
+        adam[n] = {"max_bf16_ulps": ulps, "moved_share": moved,
+                   "m_rel_err": m_err}
+
+    # ---- steps 2-4, timed ------------------------------------------------------
+    metrics = [m0, m1]
+    step_ms = []
+    for _ in range(2, TRAIN_STEPS):
+        (_, opt, m), ms = timed_step(opt)
+        metrics.append(m)
+        step_ms.append(ms)
+    losses = [float(m["loss"]) for m in metrics]
+    for k, m in enumerate(metrics):
+        check(np.isfinite(float(m["grad_norm"])), f"step {k} grad_norm "
+              f"{float(m['grad_norm'])}")
+        want_lr = adamw.schedule(ocfg, torch.tensor(k + 1, dtype=torch.int32,
+                                                    device=device))
+        check(torch.equal(m["lr"], want_lr), f"step {k} lr {float(m['lr'])} "
+              f"vs schedule {float(want_lr)}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    row = {"B": B, "S": S, "params": cfg.param_count(), "init_s": init_s,
+           "forward_only_loss": fwd_loss, "losses": losses,
+           "grad_norms": [float(m["grad_norm"]) for m in metrics],
+           "lrs": [float(m["lr"]) for m in metrics], "adamw_check": adam,
+           "first_step_ms": first_ms}
+    if on_card:
+        ms = float(np.median(step_ms))
+        tokens = B * S
+        n_mat = cfg.param_count() - cfg.vocab * cfg.d_model   # no lookup
+        n_layers = cfg.param_count() - 2 * cfg.vocab * cfg.d_model
+        attn = 4 * B * cfg.n_heads * S * S * cfg.head_dim * cfg.n_layers
+        flops = 6 * n_mat * tokens + 2 * n_layers * tokens + 4 * attn
+        busy, wall, top = device_breakdown(lambda: step(params, opt, batch), 1)
+        peak = torch.cuda.max_memory_allocated()
+        row.update({"step_ms": step_ms, "ms_per_step": ms,
+                    "tokens_per_s": tokens / ms * 1e3, "model_flops": flops,
+                    "model_flops_share": flops / (ms * 1e-3) / BF16_OPS_PER_S,
+                    "device_busy_ms": busy, "wall_ms": wall, "top": top,
+                    "max_memory_allocated": peak})
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, check=True).stdout.strip()
+        log(f"train qwen3-1.7b full width bf16 remat, B x S = {B} x {S} on "
+            f"{smi}: {ms:.1f} ms per step (steps 2-4: "
+            f"{', '.join(f'{x:.1f}' for x in step_ms)}; first {first_ms:.1f}),"
+            f" {row['tokens_per_s']:.0f} tokens/s, model FLOPs {flops:.3e} a "
+            f"step = {row['model_flops_share']:.4f} of 989 TFLOP/s, device "
+            f"busy {busy:.1f} of {wall:.1f} ms, max_memory_allocated {peak} "
+            "bytes")
+        log("train step top device kernels (ms): " + json.dumps(top))
+    log(f"train qwen3-1.7b full width: losses {losses} (forward-only "
+        f"{fwd_loss:.5f}, ln V {ln_v:.4f}), grad_norm "
+        f"{[round(x, 4) for x in row['grad_norms']]}, lr {row['lrs']}; step 0 "
+        f"twice bitwise; AdamW vs float64: " + json.dumps(adam))
+    return row
+
+
+def train_phase(device: str = "cuda", small: bool = False) -> dict:
+    """Phase 18: training (launch counters reset just before, read just
+    after: the path is plain PyTorch and launches none of the port's CUDA
+    kernels)."""
+    from repro_torch.kernels import backend
+    backend.reset_launch_counts()
+    if small:
+        print("reduced: " + json.dumps({"phase 18": "CPU rehearsal: qwen3 "
+              "shrunk to 3 layers of d 128, S = 128"}), flush=True)
+    else:
+        log("reduced: " + json.dumps({
+            "phase 18 qwen3-1.7b train_4k": f"B = {TRAIN_B} of 256 at S = "
+            f"{TRAIN_S}", "why": "one card's 80 GB: bf16 weights and "
+            "gradients 8.1 GB, float32 moments 16.3 GB, float32 logits and "
+            "their gradient about 5 GB a sequence"}))
+    out, secs = {}, {}
+    for name, part in (("smoke", lambda: train_smoke_configs(device)),
+                       ("restarts", lambda: train_restarts(device)),
+                       ("cli", lambda: train_cli(device)),
+                       ("qwen3-1.7b", lambda: train_full_width(device, small))):
+        t0 = time.perf_counter()
+        out[name] = part()
+        secs[name] = round(time.perf_counter() - t0, 1)
+    out["seconds"] = secs
+    log("phase 18 seconds per part: " + json.dumps(secs))
+    counts = backend.launch_counts()
+    check(not any(counts.values()), f"the training path launched {counts}")
+    out["launches"] = counts
     return out
 
 

@@ -14,6 +14,14 @@ checkpoints:
   checkpoint; restore picks the newest directory that has a manifest.
 * ``AsyncCheckpointer`` copies the tree to host memory on the caller's
   thread and writes it on a background thread.
+* **bfloat16** leaves are written as the reference writes them (numpy has
+  no bfloat16 kind; the reference's arrays are ``ml_dtypes.bfloat16``):
+  their 2-byte words as ``V2`` records, ``"dtype": "bfloat16"`` in the
+  manifest, the CRC over those bytes.  ``restore`` gives them back as
+  ``torch.bfloat16`` tensors.
+* ``restore(..., device=...)`` places every leaf as a tensor on a device
+  (one device, or a tree of them matching ``tree_like``): the reference's
+  elastic restore (``shardings=``) on the port's single-device placement.
 
 **Trees and leaf names.**  A tree is built from ``dict`` (children named
 ``['key']``, in sorted key order), :class:`Attrs` (children named ``.key``,
@@ -69,9 +77,29 @@ def flatten_with_names(tree) -> list[tuple[str, Any]]:
     return out
 
 
+def tree_leaves(tree) -> list:
+    """The leaves in the manifest's order: ``jax.tree.leaves``'s order for
+    the same structure (dict keys sorted)."""
+    return [leaf for _, leaf in flatten_with_names(tree)]
+
+
+def tree_map(fn: Callable[[Any], Any], tree):
+    """The tree with every leaf replaced by ``fn(leaf)``, the leaves visited
+    in ``tree_leaves``'s order."""
+    return _map(tree, lambda _, leaf: fn(leaf))
+
+
+BF16 = np.dtype("V2")        # a bfloat16 leaf's records on disk
+
+
 def _host(leaf) -> np.ndarray:
+    """A leaf as a host numpy array; a ``torch.bfloat16`` tensor as its
+    2-byte words (``BF16`` records)."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(BF16)
+        return t.numpy()
     return np.asarray(leaf)
 
 
@@ -119,7 +147,8 @@ def save(ckpt_dir: str | pathlib.Path, step: int, tree, *, fmt: str = "npz",
         "format": fmt,
         "leaves": [{"name": n, "key": key,
                     "shape": list(arrays[key].shape),
-                    "dtype": str(arrays[key].dtype),
+                    "dtype": ("bfloat16" if arrays[key].dtype == BF16
+                              else str(arrays[key].dtype)),
                     "crc32": _crc(arrays[key])}
                    for (n, _), key in zip(named, arrays)],
         "n_shards": 1,
@@ -202,15 +231,31 @@ def read_manifest(ckpt_dir: str | pathlib.Path,
     return json.loads((d / "MANIFEST.json").read_text()), step
 
 
+def _bf16_tensor(arr: np.ndarray) -> torch.Tensor:
+    """A ``torch.bfloat16`` tensor (CPU) from a leaf's 2-byte records."""
+    return torch.from_numpy(np.array(arr).view(np.int16)).view(torch.bfloat16)
+
+
+def _placed(leaf, device) -> torch.Tensor:
+    if not isinstance(leaf, torch.Tensor):
+        leaf = torch.from_numpy(np.array(leaf))
+    return leaf.to(device)
+
+
 def restore(ckpt_dir: str | pathlib.Path, tree_like, step: int | None = None,
-            verify_crc: bool = True, mmap: bool = False):
+            verify_crc: bool = True, mmap: bool = False, device=None):
     """Restore into the structure of ``tree_like`` (leaves matched by name);
-    returns ``(tree, step)`` with numpy leaves.
+    returns ``(tree, step)`` with numpy leaves, except that a bfloat16 leaf
+    comes back as a ``torch.bfloat16`` tensor.
 
     ``mmap``: memory-map leaves instead of reading them (``fmt="npy"``
     checkpoints only) — the arrays alias the files, so nothing is read until
     a consumer touches the pages.  Combine with ``verify_crc=False`` for a
     lazy load: CRC verification reads every page.
+    ``device``: place every leaf as a tensor on a device — one device (or
+    name) for the whole tree, or a tree of them with ``tree_like``'s
+    structure (the reference's ``shardings=`` elastic restore: a leaf goes
+    where the caller runs now, whatever wrote it).
     """
     manifest, step = read_manifest(ckpt_dir, step)
     d = pathlib.Path(ckpt_dir) / f"step_{step:08d}"
@@ -236,6 +281,14 @@ def restore(ckpt_dir: str | pathlib.Path, tree_like, step: int | None = None,
             if crc != meta["crc32"]:
                 raise IOError(f"checkpoint corruption on leaf {name} "
                               f"(crc {crc} != {meta['crc32']})")
+        if meta["dtype"] == "bfloat16":
+            return _bf16_tensor(arr)
         return arr
 
-    return _map(tree_like, load), step
+    restored = _map(tree_like, load)
+    if device is None:
+        return restored, step
+    if isinstance(device, (str, torch.device)):
+        return tree_map(lambda leaf: _placed(leaf, device), restored), step
+    where = dict(flatten_with_names(device))
+    return _map(restored, lambda name, leaf: _placed(leaf, where[name])), step

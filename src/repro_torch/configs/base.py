@@ -7,10 +7,14 @@ the step a cell runs, ``arch.abstract_inputs(cfg, shape)`` its inputs and
 ``arch.abstract_params(cfg)`` its parameters.  Smoke runs use
 ``arch.config(smoke=True)`` at reduced size.
 
-Left for later slices: the reference's mesh rules (``make_rules``,
-``param_specs``, ``input_specs``), which the dry-run slice needs, and
-``train_wrapper`` with its optimizer, which the training slice brings
-(ROADMAP Queue 1 items 5 and 6).
+``train_wrapper`` gives the train step: the loss with autograd on, its
+gradient over every parameter leaf (``torch.autograd.grad``), then one
+``optim.adamw.apply_updates``, which updates the parameters and the
+optimizer state in place.
+
+Left for a later slice: the reference's mesh rules (``make_rules``,
+``param_specs``, ``input_specs``), which the dry-run slice needs (ROADMAP
+Queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -19,6 +23,9 @@ import dataclasses
 from typing import Callable
 
 import torch
+
+from repro_torch.checkpoint.ckpt import tree_map
+from repro_torch.optim import adamw
 
 F32, I32 = torch.float32, torch.int32
 
@@ -73,6 +80,47 @@ class ArchDef(abc.ABC):
         """The parameters' shapes and dtypes as ``meta`` tensors."""
         return self.init_params(cfg, device="meta")
 
+    def optimizer_cfg(self) -> adamw.AdamWConfig:
+        return adamw.AdamWConfig()
+
+    def train_wrapper(self, loss_fn, cfg):
+        """``train_step(params, opt_state, batch) -> (params, opt_state,
+        metrics)``: ``loss_fn``'s gradient, then one AdamW step under
+        ``optimizer_cfg()``.  ``params`` and the moments are updated in place
+        (``adamw.apply_updates``); metrics are ``loss_fn``'s, ``"loss"``,
+        ``"grad_norm"`` and ``"lr"``, as 0-d tensors."""
+        ocfg = self.optimizer_cfg()
+
+        def train_step(params, opt_state, batch):
+            grads, loss, metrics = gradients(loss_fn, params, batch, cfg)
+            params, opt_state, om = adamw.apply_updates(params, opt_state,
+                                                        grads, ocfg)
+            return params, opt_state, {**metrics, "loss": loss, **om}
+
+        return train_step
+
     def flops_note(self, cfg) -> dict:
         """Analytic MODEL_FLOPS hints for the roofline (per family)."""
         return {}
+
+
+def gradients(loss_fn, params, batch, cfg):
+    """``(grads, loss, metrics)``: ``loss_fn(params, batch, cfg)`` with
+    autograd on and its gradient with respect to every parameter leaf, as a
+    tree of ``params``' structure and dtypes (a leaf the loss does not reach
+    gets zeros).  ``params`` are read through detached aliases, so the
+    caller's tensors are left as they are; the loss and metrics come back
+    detached."""
+    leaves = []
+
+    def alias(t):
+        leaves.append(t.detach().requires_grad_(True))
+        return leaves[-1]
+
+    with torch.enable_grad():
+        loss, metrics = loss_fn(tree_map(alias, params), batch, cfg)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+    it = iter(grads)
+    return (tree_map(lambda _: next(it), params), loss.detach(),
+            {k: v.detach() for k, v in metrics.items()})

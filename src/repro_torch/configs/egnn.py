@@ -9,9 +9,8 @@ the reference pads them; padding nodes/edges are masked):
   ogb_products   full-batch-large N=2,449,029 E=61,859,140  d_feat=100
   molecule       128 graphs x 30 nodes x 64 edges, graph-level readout
 
-Every cell is a train cell; the train step waits for the training slice
-(ROADMAP Queue 1 item 5).  ``models.gnn.forward`` and ``loss_fn`` (its
-value) run now.
+Every cell is a train cell: ``make_step(cfg, "train")`` is
+``loss_fn``'s gradient and one AdamW step (``base.train_wrapper``).
 """
 from __future__ import annotations
 
@@ -73,9 +72,7 @@ class EGNNArch(ArchDef):
 
     def make_step(self, cfg, kind: str):
         if kind == "train":
-            raise NotImplementedError(
-                "train_step is not ported yet: it waits for the training "
-                "slice (optimizer, gradient; ROADMAP Queue 1 item 5)")
+            return self.train_wrapper(gnn.loss_fn, cfg)
         raise ValueError(f"egnn has only train cells, not {kind!r}")
 
 

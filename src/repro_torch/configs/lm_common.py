@@ -2,7 +2,7 @@
 counterpart of ``repro.configs.lm_common``, without the mesh rules.
 
 Shapes (the assigned set — seq_len x global_batch):
-  train_4k     S=4096   B=256   -> train_step (the training slice)
+  train_4k     S=4096   B=256   -> train_step
   prefill_32k  S=32768  B=32    -> prefill
   decode_32k   S=32768  B=128   -> serve_step (decode, KV cache of S)
   long_500k    S=524288 B=1     -> serve_step; needs sub-quadratic attention —
@@ -68,9 +68,7 @@ class LMArch(ArchDef):
 
     def make_step(self, cfg, kind: str):
         if kind == "train":
-            raise NotImplementedError(
-                "train_step is not ported yet: it waits for the training "
-                "slice (optimizer, gradient; ROADMAP Queue 1 item 5)")
+            return self.train_wrapper(T.loss_fn, cfg)
         if kind == "prefill":
             def prefill_step(params, tokens):
                 return T.prefill(params, tokens, cfg)

@@ -2,8 +2,7 @@
 ``repro.configs.recsys_common``, without the mesh rules.
 
 Shapes (assigned set):
-  train_batch     B=65,536                     -> train_step (the training
-                                                  slice)
+  train_batch     B=65,536                     -> train_step
   serve_p99       B=512                        -> online inference
   serve_bulk      B=262,144                    -> offline scoring
   retrieval_cand  B=1, n_candidates=1,000,000  -> top-k candidate scoring
@@ -67,9 +66,7 @@ class RecsysArch(ArchDef):
 
     def make_step(self, cfg, kind: str):
         if kind == "train":
-            raise NotImplementedError(
-                "train_step is not ported yet: it waits for the training "
-                "slice (optimizer, gradient; ROADMAP Queue 1 item 5)")
+            return self.train_wrapper(recsys.loss_fn, cfg)
         if kind == "serve":
             def serve_step(params, batch):
                 return recsys.serve(params, batch, cfg)

@@ -34,6 +34,10 @@ never needs ``repro`` itself:
     the reference's ``gnn.init_params`` tree as numpy: ``embed_in``,
     ``layers`` (a list of dicts of ``phi_e`` / ``phi_x`` / ``phi_h`` weight
     lists) and ``head``.
+``adamw_state_from_jax`` (an optimizer state)
+    the reference's ``adamw.AdamWState`` with numpy leaves: ``step`` (0-d
+    int32) and the float32 moments ``m`` and ``v``, each a tree of the
+    parameters' structure (dicts and lists).
 """
 from __future__ import annotations
 
@@ -209,3 +213,28 @@ def gnn_params_from_jax(tree, cfg, *, device=None) -> dict:
     from repro_torch.models import gnn
     return _params_from_jax(tree, gnn.init_params(cfg, device="meta"),
                             cfg, resolve_device(device))
+
+
+def adamw_state_from_jax(state, *, device=None):
+    """The port's ``optim.adamw.AdamWState`` on ``device`` (default: the
+    card) from the reference's ``AdamWState`` with numpy leaves (module
+    docstring): ``step`` an int32 0-d tensor, ``m`` and ``v`` float32 trees
+    of the same structure, every value carried bitwise — so a step taken
+    from the same parameters and state computes the same thing on both
+    sides."""
+    from repro_torch.kernels.backend import resolve_device
+    from repro_torch.optim.adamw import AdamWState
+    dev = resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        return _leaf_tensor(node, torch.float32, dev)
+
+    step = np.asarray(state.step)
+    if step.shape != ():
+        raise ValueError(f"AdamWState.step of shape {step.shape}, expected ()")
+    return AdamWState(step=_leaf_tensor(step, torch.int32, dev),
+                      m=walk(state.m), v=walk(state.v))

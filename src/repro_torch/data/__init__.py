@@ -1,1 +1,2 @@
-"""Host-side data: the GNN neighbour sampler (``graph_sampler``)."""
+"""Host-side data: the stateless counter -> batch pipelines (``pipeline``)
+and the GNN neighbour sampler (``graph_sampler``)."""

@@ -118,8 +118,10 @@ def forward(params: dict, batch: dict, cfg: EGNNConfig) -> torch.Tensor:
 
 def loss_fn(params, batch, cfg: EGNNConfig):
     """(nll, {"nll": nll}): mean cross entropy over the labels, weighted by
-    ``label_mask`` when the batch has one.  The value only — its gradient
-    and the train step wait for the training slice (ROADMAP Queue 1 item 5)."""
+    ``label_mask`` when the batch has one.  Differentiable
+    (``EGNNArch.make_step(cfg, "train")`` takes its gradient): the backward
+    of a ``Segments`` sum is ``segment_reduce``'s, a gather per row, and the
+    node gathers' backward accumulates by index."""
     logits = forward(params, batch, cfg).float()
     labels = batch["labels"].long()
     mask = batch.get("label_mask")

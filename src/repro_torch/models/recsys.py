@@ -264,8 +264,9 @@ def _sasrec_forward(params, seq, cfg: RecsysConfig) -> torch.Tensor:
 
 
 def loss_fn(params, batch, cfg: RecsysConfig):
-    """(loss, {"nll": loss}): the value only — its gradient and the train
-    step wait for the training slice (ROADMAP Queue 1 item 5).  SASRec: BCE
+    """(loss, {"nll": loss}), differentiable (``RecsysArch.make_step(cfg,
+    "train")`` takes its gradient: embedding rows gather their gradients by
+    the index's backward, a sorted accumulation on the card).  SASRec: BCE
     of the positive against one sampled negative per position, masked where
     ``pos`` is 0; tabular: mean BCE of the CTR logit."""
     if cfg.interaction == "self-attn-seq":

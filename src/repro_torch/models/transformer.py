@@ -17,13 +17,21 @@ each (n_groups, B, S_kv, KV, Dh).  ``decode_step`` writes each layer's new
 key and value into its cache *in place* and returns the same tensors.
 
 Entry points:
+  loss_fn(params, batch)                         (train_* shapes, through
+                                                 ``LMArch.make_step``'s
+                                                 train_step and autograd)
   prefill(params, tokens)                        (prefill_* shapes)
   decode_step(params, caches, tokens, cache_len) (decode_* / long_* shapes)
-  loss_fn(params, batch)                         forward only; the gradient
-                                                 and train_step wait for the
-                                                 training slice
 They run on the device the parameters are on; ``init_params`` and
 ``init_cache`` put them on the card unless the caller passes ``device``.
+
+With ``cfg.remat`` and autograd on, ``forward`` runs each layer under
+``torch.utils.checkpoint`` (non-reentrant): only the layers' inputs are kept
+for the backward pass, and each layer's activations are recomputed there —
+the reference's ``jax.checkpoint(..., nothing_saveable)`` around each layer
+group of its scan.  The layers read their weights through one ``unbind`` of
+each stacked leaf, so the backward pass stacks the layers' gradients once
+(a per-layer index would add a full-size zero tensor per layer).
 """
 from __future__ import annotations
 
@@ -33,6 +41,7 @@ from typing import Any
 
 import torch
 from torch.utils import _pytree as pytree
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import attention as A
@@ -60,9 +69,6 @@ class LMConfig:
     rope_theta: float = 10000.0
     moe: M.MoEConfig | None = None
     dtype: Any = torch.bfloat16
-    # the reference's fields, kept so the configs compare field by field:
-    # there is no backward pass here to rematerialize, and the aux loss
-    # weight enters only loss_fn's forward value
     remat: bool = True
     aux_loss_weight: float = 0.01
 
@@ -150,8 +156,13 @@ def init_params(cfg: LMConfig, *, seed: int = 0, device=None) -> dict:
 
 def layers(params: dict, cfg: LMConfig) -> list[tuple[int, int, dict]]:
     """(group, position, block params as views) of every layer, in scan
-    order."""
-    return [(g, i, pytree.tree_map(lambda t: t[g], params["blocks"][i]))
+    order; each stacked leaf is unbound once."""
+    per_pos = []
+    for blk in params["blocks"]:
+        leaves, spec = pytree.tree_flatten(blk)
+        per_pos.append(([t.unbind(0) for t in leaves], spec))
+    return [(g, i, pytree.tree_unflatten([u[g] for u in per_pos[i][0]],
+                                         per_pos[i][1]))
             for g in range(cfg.n_groups) for i in range(len(cfg.pattern))]
 
 
@@ -209,19 +220,34 @@ def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig,
         caches = [(torch.empty(shp, dtype=cfg.dtype, device=x.device),
                    torch.empty(shp, dtype=cfg.dtype, device=x.device))
                   for _ in cfg.pattern]
+    remat = cfg.remat and torch.is_grad_enabled() and not collect_cache
     for g, i, p in layers(params, cfg):
-        x, (k, v), a = _block_apply(p, x, cfg, cfg.pattern[i],
-                                    cfg.use_rope_pattern[i])
+        if remat:
+            x, a = checkpoint(_layer, p, x, cfg, cfg.pattern[i],
+                              cfg.use_rope_pattern[i], use_reentrant=False)
+        else:
+            x, (k, v), a = _block_apply(p, x, cfg, cfg.pattern[i],
+                                        cfg.use_rope_pattern[i])
+            if collect_cache:
+                caches[i][0][g] = k
+                caches[i][1][g] = v
         aux = aux + a
-        if collect_cache:
-            caches[i][0][g] = k
-            caches[i][1][g] = v
     logits = _logits(params, x, cfg)
     return (logits, aux, caches) if collect_cache else (logits, aux)
 
 
+def _layer(p: dict, x: torch.Tensor, cfg: LMConfig, pattern: str,
+           use_rope: bool):
+    """One layer's (output, aux) — what a rematerialized layer keeps."""
+    x, _, aux = _block_apply(p, x, cfg, pattern, use_rope)
+    return x, aux
+
+
 def loss_fn(params: dict, batch: dict, cfg: LMConfig):
-    """The reference's training loss, forward only: (loss, {"nll", "aux"})."""
+    """The reference's training loss: (loss, {"nll", "aux"}) — the mean
+    token NLL plus ``aux_loss_weight`` x the MoE layers' summed balancing
+    loss.  Differentiable; ``LMArch.make_step(cfg, "train")`` takes its
+    gradient."""
     logits, aux = forward(params, batch["tokens"], cfg)
     nll = L.cross_entropy(logits, batch["labels"])
     return nll + cfg.aux_loss_weight * aux, {"nll": nll, "aux": aux}

@@ -1,1 +1,2 @@
-"""Runtime helpers of the serving loop (the straggler watchdog)."""
+"""Runtime helpers: the straggler watchdog of the serving and training
+loops, and the fault-tolerant training loop (``fault_tolerance``)."""

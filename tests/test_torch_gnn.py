@@ -293,8 +293,7 @@ def test_abstract_inputs_and_params_match_eval_shape(shape):
 def test_make_step_and_init_defaults():
     pa = pegnn.ARCH
     pc = pa.config(smoke=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        pa.make_step(pc, "train")
+    assert callable(pa.make_step(pc, "train"))    # tests/test_torch_train.py
     with pytest.raises(ValueError):
         pa.make_step(pc, "serve")
     if not torch.cuda.is_available():

@@ -562,8 +562,7 @@ def test_abstract_inputs_and_params_match_eval_shape(mod):
 def test_make_step_kinds():
     ra, pa = archs("qwen3_1p7b")
     pc = pa.config(smoke=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        pa.make_step(pc, "train")
+    assert callable(pa.make_step(pc, "train"))    # tests/test_torch_train.py
     with pytest.raises(ValueError):
         pa.make_step(pc, "serve")
     rc, pc, rp, pp = pair("qwen3_1p7b", seed=13)

@@ -399,8 +399,7 @@ def test_abstract_inputs_and_params_match_eval_shape(mod):
 def test_make_step_kinds():
     _, pa = archs("fm")
     pc = pa.config(smoke=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        pa.make_step(pc, "train")
+    assert callable(pa.make_step(pc, "train"))    # tests/test_torch_train.py
     with pytest.raises(ValueError):
         pa.make_step(pc, "prefill")
     assert callable(pa.make_step(pc, "serve"))
