@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (WTBC-DR, WTBC-DRB,
 positional search, the serving stack, document-sharded search, the
-quickstart, the LM serving path, the recsys towers and EGNN, and training).
+quickstart, the LM serving path, the recsys towers and EGNN, training, and
+the paper's deployment with the dry run).
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -222,7 +223,38 @@ nothing falls back to the CPU):
    989 TFLOP/s (6 N tokens over the matmul weights, the remat forward,
    attention's four passes), device busy time and top kernels,
    ``torch.cuda.max_memory_allocated``, beside the card's name and power
-   limit.
+   limit.  The bytes each placement adds on the card (parameters, AdamW
+   state, batch) are kept for phase 19.
+19. the paper's deployment and the dry run (launch counters reset before
+   the phase; the main path's launches, the four query methods' batches,
+   are tallied apart from the comparisons and timings).  (a)
+   ``configs/wtbc_paper.py`` at block 32,768 (where a descent loops past
+   one tile and a select takes several passes): 4 shards of its 6,750
+   documents, 27,000 documents of ``quarter_all_corpus``'s generator
+   (about 17 M tokens, ALL's 718,691-word vocabulary), built with
+   ``build_sharded`` on the card, and a single index over the same
+   documents with the same codes and DRB word set; 64 queries of 4 words
+   from ``zipf_real_queries`` on the global df (``or``: over the words
+   within the config's gather of 2,048 documents a shard; DR: the first 8
+   rows, the heap core looping on the host; both listed as ``reduced``),
+   k = 10.  The four methods through
+   ``WTBCPaperArch.make_query_fn``: docs, scores and n_found equal the
+   single index's under the same cores and idf table, two rows each equal
+   a host brute force over the tokens; ms per batch, launches per batch
+   (DR K1 only, DRB one ``drb_walk`` / ``drb_or`` per shard), the idle
+   share of the first DRB batches (traced with device activity only; a DR
+   batch launches about 10^6 kernels, which the profiler reads back in
+   minutes).  Each shard's bytes on the card beside
+   ``abstract_sharded``'s per device, leaf by leaf (names and dtypes
+   equal); the fitted (s, c) beside the config's.  K1 at two trips,
+   ``drb_walk`` on 8 rows and ``drb_or`` on 2 against their plain versions
+   bitwise at this block; K1's µs per launch beside phase 6's at 4,096.
+   (b) ``dryrun.argument_leaves`` of qwen3-1.7b's ``train_4k`` at phase
+   18's B = 2 on ``make_local_mesh()``: parameters, AdamW state and batch
+   equal the card's requested bytes of phase 18's placements exactly, and
+   ``memory_allocated``'s growth within the allocator's rounding.  (c)
+   ``dryrun.run`` of the ``wtbc`` and qwen3-1.7b cells on the single-pod
+   mesh and their roofline rows.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -335,14 +367,16 @@ def warm_ms(fn, reps: int, warm: int = 2) -> float:
 
 
 def topk_bound_ms(cands, q, valid, k: int) -> tuple[float, str]:
-    """The least time K6 could take: its inputs read once (the candidates,
-    the mask, q) and its (B, k) outputs written, against the float32
-    multiply-adds of every row's dot."""
+    """The least time K6 could take (``topk_score.work``): its inputs read
+    once (the candidates, the mask, q) and its (B, k) outputs written,
+    against the float32 multiply-adds of every row's dot."""
+    from repro_torch.kernels import topk_score
     B = cands.shape[0] if cands.dim() == 3 else 1
-    nbytes = (cands.numel() * cands.element_size() + q.numel() * 4
-              + (0 if valid is None else valid.numel()) + B * k * 8)
+    C, d = cands.shape[-2:]
+    nbytes, ops = topk_score.work(B, C, d, cands.element_size(), k,
+                                  valid is not None)
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_o = 2 * cands.numel() / FP32_OPS_PER_S * 1e3
+    t_o = ops / FP32_OPS_PER_S * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
@@ -810,21 +844,25 @@ def doc_batch(cp, engine, rng, band, n_rows: int, n_words: int = 3
     return np.stack(out)
 
 
-def bm25_bruteforce(tokens, ends, n_docs: int, words, *, mode: str, k: int,
-                    eps: float = 1e-6, k1: float = 1.2, b: float = 0.75):
-    """Top-k BM25 of one query by scoring every document on the host, in
-    numpy float32 from the corpus's own tokens, independent of the program:
-    ``tokens`` the concatenated documents, ``ends`` their cumulative
-    lengths.  Per word: tf per document (its token positions binned by
-    document), df, BM25's idf (the argument in float32 steps, the log in
-    float64, rounded to float32) and the DRB word rule (a word with
-    ln(N / df) < eps has no bitmap and drops out); avg_dl the exact integer
-    sum of the lengths over N in float32.  Each per-word part is
-    ``tf (k1 + 1) / (tf + k1 ((1 - b) + b (dl / avg_dl)))``, one rounded
-    float32 operation at a time, the score the parts times the idfs added
-    left to right.  Eligible: ``and`` every kept word occurs, ``or`` some
-    kept word occurs; ties go to the lower document.  Returns (docs,
-    scores) padded with -1 / -inf to k."""
+def host_bruteforce(tokens, ends, n_docs: int, words, *, mode: str, k: int,
+                    measure: str = "bm25", eps: float | None = 1e-6,
+                    k1: float = 1.2, b: float = 0.75):
+    """Top-k BM25 (or tf-idf) of one query by scoring every document on the
+    host, in numpy float32 from the corpus's own tokens, independent of the
+    program: ``tokens`` the concatenated documents, ``ends`` their
+    cumulative lengths.  Per word: tf per document (its token positions
+    binned by document), df, the idf — BM25's (the argument in float32
+    steps, the log in float64, rounded to float32) or tf-idf's ln(N / df)
+    (the quotient and the log in float64, rounded to float32: a sharded
+    build's global table) — and the DRB word rule (a word with ln(N / df) <
+    eps has no bitmap and drops out; ``eps=None``: DR keeps every word);
+    avg_dl the exact integer sum of the lengths over N in float32.  BM25's
+    per-word part is ``tf (k1 + 1) / (tf + k1 ((1 - b) + b (dl /
+    avg_dl)))``, one rounded float32 operation at a time, tf-idf's is tf;
+    the score the parts times the idfs added left to right.  Eligible:
+    ``and`` every kept word occurs, ``or`` some kept word occurs; ties go to
+    the lower document.  Returns (docs, scores) padded with -1 / -inf to
+    k."""
     f32 = np.float32
     n = f32(n_docs)
     dl = np.diff(np.concatenate([[0], ends])).astype(np.int64)
@@ -840,13 +878,17 @@ def bm25_bruteforce(tokens, ends, n_docs: int, words, *, mode: str, k: int,
             if mode == "and":            # an absent word empties the result
                 return np.full(k, -1), np.full(k, -np.inf, f32)
             continue
-        if not np.log(max(n_docs, 1) / df) >= eps:
+        if eps is not None and not np.log(max(n_docs, 1) / df) >= eps:
             continue                     # no bitmap: the word drops out
         dff = f32(df)
-        idf = f32(np.log(np.float64(f32(1.0) + (n - dff + f32(0.5))
-                                    / (dff + f32(0.5)))))
         tff = tf.astype(f32)
-        part = tff * f32(k1 + 1.0) / (tff + f32(k1) * norm)
+        if measure == "tfidf":
+            idf = f32(np.log(n_docs / df))
+            part = tff
+        else:
+            idf = f32(np.log(np.float64(f32(1.0) + (n - dff + f32(0.5))
+                                        / (dff + f32(0.5)))))
+            part = tff * f32(k1 + 1.0) / (tff + f32(k1) * norm)
         score = score + part * idf
         occurs.append(tf > 0)
     if not occurs:
@@ -1186,6 +1228,10 @@ def main(argv=None) -> int:
     rs = timed_phase("17", recsys_phase)
     row["scored_topk"]["sasrec_retrieval"] = rs["sasrec"]["k6"]
     tr = timed_phase("18", train_phase)
+    # a --docs rehearsal draws that many documents for the deployment too
+    dep = timed_phase("19", deploy_phase, "cuda",
+                      None if args.docs == QUARTER_DOCS else args.docs,
+                      kernels[0]["ms"], tr["qwen3-1.7b"]["placed"])
     log("seconds per phase: " + json.dumps(
         {k_: round(v, 1) for k_, v in phase_s.items()}))
     for k_ in kernels:
@@ -1202,12 +1248,14 @@ def main(argv=None) -> int:
         k_["lm_launches"] = lm["launches"][k_["name"]]
         k_["recsys_launches"] = rs["launches"][k_["name"]]
         k_["train_launches"] = tr["launches"][k_["name"]]
+        k_["deploy_launches"] = dep["launches"][k_["name"]]
     log(json.dumps({"serving": serving}))
     log(json.dumps({"sharded": sharded}))
     log(json.dumps({"quickstart": quick}))
     log(json.dumps({"lm": lm}))
     log(json.dumps({"recsys": rs}))
     log(json.dumps({"train": tr}))
+    log(json.dumps({"deploy": dep}))
     log(json.dumps({"launches": counts,
                     "kernels": [k["name"] for k in kernels]}))
     log(json.dumps({"kernels": kernels}))
@@ -1597,7 +1645,7 @@ def drb_phases(engine, cp, batches, kind) -> tuple[list[dict], int]:
     for i, (mode, band, q) in enumerate(batches):
         res = drb_res[("bm25", i)]
         for row in range(2):
-            bd, bs = bm25_bruteforce(tokens, ends, idx.n_docs, q[row],
+            bd, bs = host_bruteforce(tokens, ends, idx.n_docs, q[row],
                                      mode=mode, k=K, eps=engine.config.eps)
             got_d = res.docs[row].cpu().numpy()
             got_s = res.scores[row].cpu().numpy()
@@ -4168,12 +4216,32 @@ def train_full_width(device: str = "cuda", small: bool = False) -> dict:
     def sync():
         if on_card:
             torch.cuda.synchronize()
+
+    def held():
+        """(allocated, requested) bytes on the card: what a placement adds
+        (phase 19b holds it against the dry run)."""
+        if not on_card:
+            return None
+        sync()
+        stats = torch.cuda.memory_stats()
+        return (torch.cuda.memory_allocated(),
+                stats.get("requested_bytes.all.current"))
+
+    def grew(before, after):
+        return None if before is None else {
+            "allocated": after[0] - before[0],
+            "requested": None if before[1] is None else after[1] - before[1]}
+    placed = {}
+    h0 = held()
     t0 = time.perf_counter()
     params = arch.init_params(cfg, seed=SEED, device=device)
     sync()
     init_s = time.perf_counter() - t0
+    placed["params"] = grew(h0, held())
     p0 = pytree.tree_map(lambda t: t.clone(), params)
+    h0 = held()
     batch = pipeline.lm_batch(SEED, 0, B, S, cfg.vocab, device=device)
+    placed["batch"] = grew(h0, held())
     step = arch.make_step(cfg, "train")
     with torch.no_grad():
         fwd_loss = float(T.loss_fn(params, batch, cfg)[0])
@@ -4185,7 +4253,10 @@ def train_full_width(device: str = "cuda", small: bool = False) -> dict:
         return out, (time.perf_counter() - t) * 1e3
 
     # ---- step 0, twice from the same state: bitwise -----------------------
-    (_, opt, m0), first_ms = timed_step(adamw.init_state(params))
+    h0 = held()
+    opt = adamw.init_state(params)
+    placed["opt_state"] = grew(h0, held())
+    (_, opt, m0), first_ms = timed_step(opt)
     loss0 = float(m0["loss"])
     tol = TRAIN_BF16["atol"] + TRAIN_BF16["rtol"] * abs(fwd_loss)
     check(abs(loss0 - fwd_loss) <= tol, f"step 0 loss {loss0} vs forward-only "
@@ -4263,7 +4334,7 @@ def train_full_width(device: str = "cuda", small: bool = False) -> dict:
            "forward_only_loss": fwd_loss, "losses": losses,
            "grad_norms": [float(m["grad_norm"]) for m in metrics],
            "lrs": [float(m["lr"]) for m in metrics], "adamw_check": adam,
-           "first_step_ms": first_ms}
+           "first_step_ms": first_ms, "placed": placed}
     if on_card:
         ms = float(np.median(step_ms))
         tokens = B * S
@@ -4325,6 +4396,408 @@ def train_phase(device: str = "cuda", small: bool = False) -> dict:
     check(not any(counts.values()), f"the training path launched {counts}")
     out["launches"] = counts
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the paper's deployment, and the dry run against the card
+# ---------------------------------------------------------------------------
+
+DEPLOY_SHARDS = 4
+DEPLOY_SEED = SEED + 19
+DEPLOY_REPS = 5          # timed repeats of a DRB batch (a DR batch runs once)
+# rows of a DR batch: the heap core loops on the host, one trip a pop of
+# every shard in turn, ≈ 4-5 ms a trip; at B = 64 dr-and took 22 s and dr-or
+# did not finish in 18 minutes on the unrestricted draw (H100, PR 24)
+DEPLOY_DR_B = 8
+DEPLOY_BRUTE_ROWS = 2
+DR_LEAVES = ("docs", "scores", "n_found", "iters", "pops", "overflowed",
+             "certified", "bound")
+
+
+def shard_leaves(idx, aux, base: int) -> dict:
+    """One shard as it lies on its device, under the stacked form's leaf
+    names (``ShardedWTBC.stack()``, ``wtbc_paper.abstract_sharded``): a
+    tensor, or a host int where the stacked form holds an int32 row."""
+    out = {}
+    for L, lv in enumerate(idx.levels):
+        pre = f"['idx']['levels'][{L}]"
+        out.update({pre + "['data']": lv.data, pre + "['counts']": lv.counts,
+                    pre + "['length']": lv.length})
+    for L, o in enumerate(idx.offsets):
+        out[f"['idx']['offsets'][{L}]"] = o
+    for f in ("cw", "cw_len", "node_off", "base_rank", "sep_pos", "df", "occ",
+              "doc_len", "n", "n_docs"):
+        out[f"['idx'][{f!r}]"] = getattr(idx, f)
+    out.update({"['aux']['words']": aux.bv.words,
+                "['aux']['counts']": aux.bv.counts,
+                "['aux']['n_bits']": aux.bv.n_bits,
+                "['aux']['bit_off']": aux.bit_off,
+                "['aux']['has_bm']": aux.has_bm, "['doc_base']": base})
+    return out
+
+
+def shard_bytes_table(sh, abs_sh, mesh) -> dict:
+    """Each shard's bytes on its device beside ``abstract_sharded``'s
+    per-device bytes, leaf by leaf.  Leaf names and dtypes must be equal;
+    the bitmap words lie on the card as int32 bit patterns of the stacked
+    form's uint32."""
+    import torch
+    from repro_torch.configs import wtbc_paper
+    from repro_torch.launch import dryrun
+    specs = wtbc_paper.ARCH.sharded_specs(abs_sh, mesh.axis_names)
+    want = {n: (t, dryrun.device_bytes(t, sp, mesh)) for n, t, sp in
+            dryrun.leaves_with_specs(abs_sh, specs)
+            if not n.startswith("['global_")}
+    rows, totals = [], []
+    for s, (idx, aux, base) in enumerate(zip(sh.idx, sh.aux, sh.bases)):
+        got = shard_leaves(idx, aux, base)
+        check(sorted(got) == sorted(want), f"shard {s} leaves "
+              f"{sorted(set(got) ^ set(want))} differ from abstract_sharded's")
+        total = 0
+        for name, (t_abs, b_abs) in want.items():
+            t = got[name]
+            if isinstance(t, int):
+                card, dtype = "host int", str(t_abs.dtype)
+            else:
+                card = t.numel() * t.element_size()
+                total += card
+                dtype = str(t.dtype)
+                if name == "['aux']['words']" and t.dtype == torch.int32:
+                    dtype = "torch.uint32"          # the same 32 bits
+            check(dtype == str(t_abs.dtype), f"shard {s} {name}: {dtype} on "
+                  f"the card, {t_abs.dtype} in abstract_sharded")
+            if s == 0:
+                rows.append({"leaf": name, "dtype": dtype.removeprefix(
+                    "torch."), "abstract_bytes": b_abs, "shard0_bytes": card,
+                    "shard0_shape": None if isinstance(t, int)
+                    else list(t.shape),
+                    "abstract_shape": list(t_abs.shape[1:])})
+        totals.append(total)
+    return {"leaves": rows, "shard_bytes": totals,
+            "abstract_bytes": sum(b for _, b in want.values())}
+
+
+def deploy_phase(device: str = "cuda", n_docs: int | None = None,
+                 k1_ms: float | None = None, placed: dict | None = None
+                 ) -> dict:
+    """Phase 19: (a) the paper's deployment — ``configs/wtbc_paper.py`` at
+    block 32,768 — on 4 shards of one card, its four query methods through
+    ``WTBCPaperArch.make_query_fn`` against a single index over the same
+    documents and a host brute force; (b) the dry run's argument bytes of
+    qwen3-1.7b's ``train_4k`` cell at phase 18's B against what phase 18's
+    placements added on the card (``placed``); (c) the dry run and roofline
+    rows of the ``wtbc`` and qwen3-1.7b cells on the single-pod mesh.
+    ``k1_ms``: phase 6's K1 device ms at block 4,096 (M = 32)."""
+    import dataclasses
+    import tempfile
+    import torch
+    from repro_torch.analysis import roofline
+    from repro_torch.configs import base, qwen3_1p7b, wtbc_paper
+    from repro_torch.core import distributed, drb, mega, ranked, scoring, wtbc
+    from repro_torch.kernels import backend, wavelet_descent
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.text import corpus as tcorpus
+    on_card = device == "cuda"
+    arch = wtbc_paper.ARCH
+    cfg = arch.config()
+    n_docs = n_docs or DEPLOY_SHARDS * cfg.docs_per_shard
+    B, Q, k = cfg.query_batch, cfg.words_per_query, cfg.k
+    backend.reset_launch_counts()
+    out = {"config": {"block": cfg.block, "shards": DEPLOY_SHARDS,
+                      "docs": n_docs, "B": B, "Q": Q, "k": k}}
+
+    secs, t_part = {}, time.perf_counter()
+
+    def part_done(name):
+        nonlocal t_part
+        secs[name] = round(time.perf_counter() - t_part, 1)
+        t_part = time.perf_counter()
+
+    # ---- 19a. the corpus, the shards and a single index --------------------
+    t0 = time.perf_counter()
+    cp = quarter_all_corpus(n_docs, DEPLOY_SEED)
+    t_draw = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sh, model = distributed.build_sharded(
+        cp.doc_tokens, cp.vocab_size, DEPLOY_SHARDS, block=cfg.block,
+        device=None if on_card else "cpu")
+    _sync(device)
+    t_build = time.perf_counter() - t0
+    dev = sh.devices[0]
+    t0 = time.perf_counter()
+    single = wtbc.build_index_with_model(cp.doc_tokens, model, cfg.block,
+                                         device=dev)
+    single_aux = drb.build_aux(single, model, cp.doc_tokens, sh.aux[0].eps,
+                               has_bm_override=sh.aux[0].has_bm.cpu().numpy())
+    _sync(device)
+    t_single = time.perf_counter() - t0
+    log("reduced: " + json.dumps({
+        "phase 19 deployment": f"{DEPLOY_SHARDS} shards of the config's "
+        f"{cfg.docs_per_shard} documents ({n_docs} documents, "
+        f"{cp.n_tokens} tokens) on one card; the config deploys 256 shards "
+        f"of {cfg.tokens_per_shard} tokens over a 16 x 16 mesh",
+        "why": "one card; each shard holds the config's documents, its "
+        "tokens follow ALL's mean document length"}))
+    fitted = (int(model.s), int(model.c))
+    log(f"deployment: {n_docs} documents drawn in {t_draw:.2f} s; "
+        f"{DEPLOY_SHARDS} shards built at block {cfg.block} in {t_build:.2f} "
+        f"s on {sorted({str(d) for d in sh.devices})}, a single index over "
+        f"the same documents in {t_single:.2f} s; (s, c) fitted {fitted}"
+        + ("" if fitted == (cfg.s, cfg.c) else
+           f", the config's ({cfg.s}, {cfg.c})"))
+    check(all(i.levels[0].block == cfg.block for i in sh.idx)
+          and single.levels[0].block == cfg.block, "block")
+    check((single.s, single.c) == fitted and all(
+        (i.s, i.c) == fitted for i in sh.idx), "shards and the single index "
+        "use different codes")
+    mesh4 = mesh_lib.MeshShape(("data",), (DEPLOY_SHARDS,))
+    abs_sh = wtbc_paper.abstract_sharded(cfg, DEPLOY_SHARDS)
+    space = shard_bytes_table(sh, abs_sh, mesh4)
+    for r in space["leaves"]:
+        log(f"  {r['leaf']}: {r['dtype']} shard 0 {r['shard0_bytes']} bytes "
+            f"{r['shard0_shape']}, abstract_sharded {r['abstract_bytes']} "
+            f"bytes {r['abstract_shape']}")
+    log(f"bytes per shard on {dev}: {space['shard_bytes']}; "
+        f"abstract_sharded per device: {space['abstract_bytes']}")
+    out.update(build_s=t_build, single_build_s=t_single, draw_s=t_draw,
+               tokens=cp.n_tokens, fitted_sc=fitted, space=space,
+               shard_docs=[i.n_docs for i in sh.idx],
+               shard_tokens=[i.n - i.n_docs for i in sh.idx])
+
+    part_done("build")
+
+    # ---- 19a. the queries ----------------------------------------------------
+    rank = np.asarray(model.rank_of_word)
+    df_word = sh.global_df.cpu().numpy()[rank]
+    shard_df = np.stack([i.df.cpu().numpy() for i in sh.idx]).max(0)[rank]
+    cap = min(cfg.docs_per_shard, 2048)
+    q_all = tcorpus.zipf_real_queries(df_word, B, Q, seed=DEPLOY_SEED)
+    q_cap = tcorpus.zipf_real_queries(np.where(shard_df <= cap, df_word, 0),
+                                      B, Q, seed=DEPLOY_SEED)
+    over = int((shard_df[q_all] > cap).any(1).sum())
+    log("reduced: " + json.dumps({
+        "phase 19 or queries": f"dr-or and drb-or draw zipf_real_queries "
+        f"over the words whose document frequency on every shard is at most "
+        f"the config's DRB or gather of {cap} documents (wtbc_paper.py: "
+        f"min(docs_per_shard, 2048)); {over} of the {B} rows of the "
+        f"unrestricted draw hold a word past it, whose documents past the "
+        f"{cap}th on a shard the gather leaves out, and whose DR or pops "
+        "most of each shard's tree",
+        "phase 19 DR batches": f"B = {DEPLOY_DR_B} of {B} (the first rows "
+        "of each draw): the heap core's host loop takes 4-5 ms a trip"}))
+    batches = {"dr-and": q_all[:DEPLOY_DR_B], "dr-or": q_cap[:DEPLOY_DR_B],
+               "drb-and": q_all, "drb-or": q_cap}
+    idf = sh.global_idf
+    tfidf = scoring.TfIdf()
+
+    def encode(q):
+        w = torch.from_numpy(rank[q].astype(np.int32)).to(dev)
+        return w, torch.ones(w.shape, dtype=torch.bool, device=dev)
+
+    def on_single(method, w, m, **kw):
+        if method.startswith("dr-"):
+            return mega.topk_dr_mega(single, w, m, idf, k=k,
+                                     conjunctive=method == "dr-and",
+                                     cap=2 * single.n_docs + 4, **kw)
+        if method == "drb-and":
+            return drb.topk_drb_and(single, single_aux, w, m, tfidf, k=k,
+                                    idf=idf, **kw)
+        full = int(single.df[w.long()].max()) + 2
+        return drb.topk_drb_or(single, single_aux, w, m, tfidf, k=k,
+                               max_df_cap=full, idf=idf, **kw)
+
+    tokens = np.concatenate(cp.doc_tokens)
+    ends = np.cumsum([len(t) for t in cp.doc_tokens])
+    tally = Tally()
+    methods = {}
+    for shape, method in wtbc_paper.SHAPES.items():
+        q = batches[method]
+        w, m = encode(q)
+        query = arch.make_query_fn(cfg, shape, sh.devices)
+        # a DR batch launches ≈ 10^6 device kernels (hundreds a trip): the
+        # profiler takes minutes to read them back, so only DRB is traced
+        (res, launched), first_ms, busy = profiled(
+            lambda: tally.run(query, sh, w, m), device,
+            trace=method.startswith("drb"))
+        t_check = time.perf_counter()
+        want = on_single(method, w, m)
+        for leaf in ("docs", "scores", "n_found"):
+            check(torch.equal(getattr(res, leaf).cpu(),
+                              getattr(want, leaf).cpu()),
+                  f"deployment {method} differs from the single index on "
+                  f"{leaf}")
+        check(not bool(res.overflowed.any()), f"{method}: a shard overflowed")
+        for row in range(DEPLOY_BRUTE_ROWS):
+            bd, bs = host_bruteforce(
+                tokens, ends, n_docs, q[row], mode=method.split("-")[1], k=k,
+                measure="tfidf",
+                eps=sh.aux[0].eps if method.startswith("drb") else None)
+            got_d = res.docs[row].cpu().numpy()
+            got_s = res.scores[row].cpu().numpy()
+            check(np.array_equal(bd, got_d) and np.array_equal(bs, got_s),
+                  f"deployment {method} row {row} differs from the host brute "
+                  f"force: {bd.tolist()} {bs.tolist()} vs {got_d.tolist()} "
+                  f"{got_s.tolist()}")
+        check_s = time.perf_counter() - t_check
+        ms = [first_ms]
+        if method.startswith("drb"):
+            ms += [wall_ms(lambda: query(sh, w, m), device)[0]
+                   for _ in range(DEPLOY_REPS - 1)]
+        row = {"B": len(q), "ms_per_batch": float(np.median(ms)), "ms": ms,
+               "launches": launched, "n_found": res.n_found.tolist(),
+               "pops": res.pops.tolist(), "device_busy_ms": busy,
+               "checks_s": check_s,
+               "idle_share": None if busy is None else 1 - busy / first_ms}
+        if on_card:
+            expect = {"dr-and": {"wavelet_count"}, "dr-or": {"wavelet_count"},
+                      "drb-and": {"drb_walk"}, "drb-or": {"drb_or"}}[method]
+            check(set(launched) == expect, f"{method} batch launched "
+                  f"{launched}, expected {sorted(expect)} only")
+            if method.startswith("drb"):
+                check(sum(launched.values()) == DEPLOY_SHARDS,
+                      f"{method}: one launch per shard, got {launched}")
+        methods[method] = row
+        log(f"deployment {method} (B = {len(q)}, Q = {Q}, k = {k}): == "
+            f"single index (docs, scores, n_found) and the host brute force "
+            f"(rows 0-{DEPLOY_BRUTE_ROWS - 1}); ms per batch "
+            f"{row['ms_per_batch']:.3f} ({', '.join(f'{x:.3f}' for x in ms)})"
+            f"; launches {launched}; pops per row (summed over shards) "
+            f"{row['pops']}; device busy {busy} ms, idle share "
+            f"{row['idle_share']}; checks {check_s:.1f} s")
+    del tokens
+    out.update(methods=methods, drb_or_rows_over_cap=over)
+    part_done("methods")
+
+    # ---- 19a. kernels against their plain versions at block 32,768 --------
+    w, m = encode(q_all)
+    w8, m8 = w[:8].contiguous(), m[:8].contiguous()
+    # the plain DRB or reads every lane's whole 32 KB block: 2 rows within
+    # the gather cap (8 unrestricted rows read 7 GB a level)
+    wc2, mc2 = (x[:2].contiguous() for x in encode(q_cap))
+    idx0, aux0 = sh.idx[0], sh.aux[0]
+    idf0 = sh.replicate(idf)[0]
+    with OpsRecorder() as rec:
+        ranked.topk_dr_batch(idx0, w, m, idf0, k=k, conjunctive=False,
+                             heap_cap=2 * cfg.docs_per_shard + 4, max_pops=3)
+    trip = rec.calls[1]
+
+    def k1(t, kb):
+        return wavelet_descent.wavelet_count(
+            idx0.levels, idx0.cw, idx0.cw_len, idx0.node_off,
+            idx0.base_rank, *t, kernel_backend=kb)
+    trip32 = tuple(x[:32].contiguous() for x in trip)
+    for t in (trip, trip32):
+        check(torch.equal(k1(t, "auto"), k1(t, "ref")),
+              f"wavelet_count differs from its plain version at block "
+              f"{cfg.block} (M = {t[0].numel()})")
+    for name, run in (
+            ("drb_walk", lambda kb: drb.topk_drb_and(
+                idx0, aux0, w8, m8, tfidf, k=k, idf=idf0, kernel_backend=kb)),
+            ("drb_or", lambda kb: drb.topk_drb_or(
+                idx0, aux0, wc2, mc2, tfidf, k=k, idf=idf0,
+                max_df_cap=int(idx0.df[wc2.long()].max()) + 2,
+                kernel_backend=kb))):
+        got, want = run("auto"), run("ref")
+        bad = [n for n in DR_LEAVES if not torch.equal(getattr(got, n),
+                                                       getattr(want, n))]
+        check(not bad, f"{name} differs from its plain version at block "
+              f"{cfg.block} on {bad}")
+    log(f"K1 (M = {trip[0].numel()} and 32), drb_walk (8 rows) and drb_or "
+        f"(2 rows) on shard 0 == their plain versions at block {cfg.block}: "
+        "bitwise")
+    if on_card:
+        k1_us = {}
+        for t in (trip32, trip):
+            kms, _ = profile_device(lambda: k1(t, "auto"), 100,
+                                    "wavelet_count_kernel")
+            k1_us[t[0].numel()] = kms * 1e3
+        log(f"K1 at block {cfg.block}: " + ", ".join(
+            f"{v:.3f} µs at M = {mm}" for mm, v in k1_us.items())
+            + ("" if k1_ms is None else
+               f"; phase 6 at block {BLOCK}: {k1_ms * 1e3:.3f} µs at M = 32"))
+        out["k1_us"] = k1_us
+        out["k1_us_block4096"] = None if k1_ms is None else k1_ms * 1e3
+    out["launches"] = {name: tally.counts.get(name, 0)
+                       for name in backend.launch_counts()}
+    log("deployment path launches: " + json.dumps(out["launches"]))
+    part_done("kernels")
+
+    # ---- 19b. the dry run's argument bytes against the card ---------------
+    qarch = qwen3_1p7b.ARCH
+    cell = next(c for c in qarch.cells() if c.shape == "train_4k")
+    batch = {"batch": {n: base.meta((TRAIN_B, TRAIN_S), base.I32)
+                       for n in ("tokens", "labels")}}
+    local = mesh_lib.make_local_mesh(device)
+    leaves = dryrun.argument_leaves(qarch, cell, local, inputs=batch)
+    dry = dryrun.argument_bytes(leaves)
+    groups = [g for g in dry if g != "total"]
+    n_tensors = {g: sum(1 for g_, _, _ in leaves if g_ == g) for g in groups}
+    rounded = {g: sum(-(-b // 512) * 512 for g_, _, b in leaves if g_ == g)
+               for g in groups}
+    out["dryrun_vs_card"] = {"mesh": local.shape, "dryrun": dry,
+                             "tensors": n_tensors, "rounded_512": rounded,
+                             "card": placed}
+    log(f"dry run of qwen3-1.7b train_4k at B = {TRAIN_B} on {local.shape}: "
+        f"argument bytes {json.dumps(dry)} in {json.dumps(n_tensors)} tensors")
+    if placed:
+        for g in ("params", "opt_state", "batch"):
+            got = placed[g]
+            check(got["requested"] is None or got["requested"] == dry[g],
+                  f"{g}: the card's requested bytes grew by "
+                  f"{got['requested']}, the dry run says {dry[g]}")
+            slack = got["allocated"] - dry[g]
+            check(0 <= slack <= n_tensors[g] * (512 + (1 << 20)),
+                  f"{g}: memory_allocated grew by {got['allocated']}, the "
+                  f"dry run says {dry[g]}")
+            log(f"  {g}: dry run {dry[g]} bytes; the card's requested bytes "
+                f"+{got['requested']}, memory_allocated +{got['allocated']} "
+                f"(each tensor rounded to 512: {rounded[g]}; "
+                f"{'equal' if got['allocated'] == rounded[g] else 'more'})")
+
+    # ---- 19c. the dry run and roofline rows on the single-pod mesh --------
+    with tempfile.TemporaryDirectory(prefix="dryrun-") as tmp:
+        t0 = time.perf_counter()
+        fails = sum(dryrun.run("single", a, None, force=True,
+                               art=Path(tmp))
+                    for a in ("wtbc", "qwen3-1.7b"))
+        dry_s = time.perf_counter() - t0
+        check(fails == 0, f"{fails} dry-run cells failed")
+        rows = roofline.load_all("single", art=Path(tmp))
+    table = roofline.markdown_table(rows)
+    for line in table.splitlines():
+        log("  " + line)
+    out["roofline"] = [dataclasses.asdict(r) for r in rows]
+    out["dryrun_s"] = dry_s
+    part_done("dry run")
+    out["seconds"] = secs
+    log("phase 19 seconds per part: " + json.dumps(secs))
+    return out
+
+
+def profiled(fn, device: str, trace: bool = True):
+    """(``fn()``, host ms around it ending in a synchronize, device busy ms)
+    of one call, traced by ``torch.profiler`` with device activity only (no
+    host-op tracing, so the host time is the call's own); busy is None where
+    the session recorded no device time, on the CPU, and without
+    ``trace``."""
+    if device != "cuda" or not trace:
+        ms, out = wall_ms(fn, device)
+        return out, ms, None
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+    return out, wall, busy if busy > 0 else None
 
 
 if __name__ == "__main__":

@@ -1,20 +1,19 @@
 """Architecture glue: Cell (arch x shape) definitions, abstract inputs and
-parameters as ``meta`` tensors (shapes and dtypes, no allocation), and the
-functions that build a step.  The port's counterpart of ``repro.configs.base``.
+parameters as ``meta`` tensors (shapes and dtypes, no allocation), their
+sharding specs, and the functions that build a step.  The port's
+counterpart of ``repro.configs.base``.
 
 Every architecture provides an ArchDef; ``arch.make_step(cfg, kind)`` gives
 the step a cell runs, ``arch.abstract_inputs(cfg, shape)`` its inputs and
-``arch.abstract_params(cfg)`` its parameters.  Smoke runs use
-``arch.config(smoke=True)`` at reduced size.
+``arch.abstract_params(cfg)`` its parameters; ``arch.param_specs(cfg,
+rules)`` and ``arch.input_specs(cfg, shape, rules)`` give, per leaf, the
+mesh axes each dimension would be split over (``launch/dryrun.py`` reads
+them).  Smoke runs use ``arch.config(smoke=True)`` at reduced size.
 
 ``train_wrapper`` gives the train step: the loss with autograd on, its
 gradient over every parameter leaf (``torch.autograd.grad``), then one
 ``optim.adamw.apply_updates``, which updates the parameters and the
 optimizer state in place.
-
-Left for a later slice: the reference's mesh rules (``make_rules``,
-``param_specs``, ``input_specs``), which the dry-run slice needs (ROADMAP
-Queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -25,6 +24,7 @@ from typing import Callable
 import torch
 
 from repro_torch.checkpoint.ckpt import tree_map
+from repro_torch.models import layers as L
 from repro_torch.optim import adamw
 
 F32, I32 = torch.float32, torch.int32
@@ -36,6 +36,7 @@ class Cell:
     shape: str
     kind: str                         # train | prefill | decode | serve | retrieval
     skip: str | None = None           # reason if this cell is skipped
+    rules_overrides: tuple = ()       # ((logical, mesh_axes), ...)
 
     @property
     def cell_id(self) -> str:
@@ -49,6 +50,28 @@ def meta(shape, dtype) -> torch.Tensor:
 
 def pad_to(n: int, mult: int) -> int:
     return -(-n // mult) * mult
+
+
+def make_rules(mesh_axis_names: tuple[str, ...], cell: Cell | None = None,
+               extra: dict | None = None) -> L.MeshRules:
+    """Logical rules filtered to the axes that exist on this mesh, with
+    per-cell overrides applied."""
+    overrides = dict(extra or {})
+    if cell is not None:
+        overrides.update(dict(cell.rules_overrides))
+    merged = dict(L.DEFAULT_RULES)
+    merged.update(overrides)
+
+    def keep(v):
+        if v is None:
+            return None
+        axes = (v,) if isinstance(v, str) else tuple(v)
+        axes = tuple(a for a in axes if a in mesh_axis_names)
+        if not axes:
+            return None
+        return axes if len(axes) > 1 else axes[0]
+
+    return L.MeshRules.make({k: keep(v) for k, v in merged.items()})
 
 
 class ArchDef(abc.ABC):
@@ -69,7 +92,13 @@ class ArchDef(abc.ABC):
     def init_params(self, cfg, *, seed: int = 0, device=None): ...
 
     @abc.abstractmethod
+    def param_specs(self, cfg, rules: L.MeshRules): ...
+
+    @abc.abstractmethod
     def abstract_inputs(self, cfg, shape: str) -> dict: ...
+
+    @abc.abstractmethod
+    def input_specs(self, cfg, shape: str, rules: L.MeshRules) -> dict: ...
 
     @abc.abstractmethod
     def make_step(self, cfg, kind: str) -> Callable: ...

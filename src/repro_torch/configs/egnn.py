@@ -1,5 +1,5 @@
 """egnn: 4 layers, d_hidden 64, E(n)-equivariant [arXiv:2102.09844].  The
-port's counterpart of ``repro.configs.egnn``, without the mesh rules.
+port's counterpart of ``repro.configs.egnn``.
 
 Four shapes, each with its own graph geometry (padded to 4096-multiples as
 the reference pads them; padding nodes/edges are masked):
@@ -53,6 +53,9 @@ class EGNNArch(ArchDef):
     def init_params(self, cfg, *, seed: int = 0, device=None):
         return gnn.init_params(cfg, seed=seed, device=device)
 
+    def param_specs(self, cfg, rules):
+        return gnn.param_specs(cfg, rules)
+
     def abstract_inputs(self, cfg, shape: str) -> dict:
         m = SHAPES[shape]
         N, E = pad_to(m["nodes"], PAD), pad_to(m["edges"], PAD)
@@ -68,6 +71,17 @@ class EGNNArch(ArchDef):
         else:
             batch["labels"] = meta((N,), I32)
             batch["label_mask"] = meta((N,), F32)
+        return {"batch": batch}
+
+    def input_specs(self, cfg, shape: str, rules) -> dict:
+        node = rules.spec("nodes")
+        batch = {"feats": rules.spec("nodes", None),
+                 "coords": rules.spec("nodes", None),
+                 "edges": rules.spec("edges", None)}
+        if SHAPES[shape]["readout"]:
+            batch.update(graph_ids=node, labels=(), label_mask=())
+        else:
+            batch.update(labels=node, label_mask=node)
         return {"batch": batch}
 
     def make_step(self, cfg, kind: str):

@@ -14,4 +14,7 @@ FULL = T.LMConfig(
     window=4096, attn_softcap=50.0, final_softcap=30.0, post_norms=True,
     dtype=torch.bfloat16)
 
-ARCH = LMArch("gemma2-9b", FULL, smoke_lm("gemma2-9b", FULL), long_ok=True)
+# sequence-parallel TP: the residual stream's S split over 'model' (the
+# reference's rules)
+ARCH = LMArch("gemma2-9b", FULL, smoke_lm("gemma2-9b", FULL), long_ok=True,
+              extra_rules=(("seq", "model"),))

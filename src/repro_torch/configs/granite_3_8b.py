@@ -13,5 +13,8 @@ FULL = T.LMConfig(
     d_ff=12800, vocab=49408,        # padded from 49155
     dtype=torch.bfloat16)
 
+# sequence-parallel TP: the residual stream's S split over 'model' (the
+# reference's rules)
 ARCH = LMArch("granite-3-8b", FULL, smoke_lm("granite-3-8b", FULL),
-              long_ok=False)
+              long_ok=False,
+              extra_rules=(("seq", "model"),))

@@ -23,6 +23,9 @@ FULL = T.LMConfig(
     moe=MoEConfig(n_experts=16, top_k=1, d_ff=8192, n_shared=1),
     dtype=torch.bfloat16)
 
+# 40 heads do not divide model=16, so heads replicate; sequence-parallel TP
+# as the other LMs (the reference's rules)
 ARCH = LMArch("llama4-scout-17b-a16e", FULL,
               smoke_lm("llama4-scout-17b-a16e", FULL),
-              long_ok=True)
+              long_ok=True,
+              extra_rules=(("heads", None), ("seq", "model")))

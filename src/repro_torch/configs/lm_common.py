@@ -1,5 +1,5 @@
 """Shared ArchDef for the five LM-family transformers.  The port's
-counterpart of ``repro.configs.lm_common``, without the mesh rules.
+counterpart of ``repro.configs.lm_common``.
 
 Shapes (the assigned set — seq_len x global_batch):
   train_4k     S=4096   B=256   -> train_step
@@ -26,16 +26,20 @@ LM_SHAPES = {
     "long_500k": dict(kind="decode", seq=524288, batch=1),
 }
 
+# long_500k: one sequence, its KV split over every mesh axis
+LONG_RULES = (("batch", None), ("kv_seq", ("pod", "data", "model")))
+
 
 class LMArch(ArchDef):
     family = "lm"
 
     def __init__(self, name: str, cfg_full: T.LMConfig, cfg_smoke: T.LMConfig,
-                 long_ok: bool):
+                 long_ok: bool, extra_rules: tuple = ()):
         self.name = name
         self._full = cfg_full
         self._smoke = cfg_smoke
         self._long_ok = long_ok
+        self._extra_rules = tuple(extra_rules)
 
     def config(self, smoke: bool = False) -> T.LMConfig:
         return self._smoke if smoke else self._full
@@ -44,15 +48,22 @@ class LMArch(ArchDef):
         out = []
         for shape, m in LM_SHAPES.items():
             skip = None
-            if shape == "long_500k" and not self._long_ok:
-                # the reference's reason, word for word
-                skip = ("pure full-attention arch: 500k decode has no "
-                        "sub-quadratic path (DESIGN.md §5)")
-            out.append(Cell(self.name, shape, m["kind"], skip=skip))
+            rules = self._extra_rules
+            if shape == "long_500k":
+                rules = rules + LONG_RULES
+                if not self._long_ok:
+                    # the reference's reason, word for word
+                    skip = ("pure full-attention arch: 500k decode has no "
+                            "sub-quadratic path (DESIGN.md §5)")
+            out.append(Cell(self.name, shape, m["kind"], skip=skip,
+                            rules_overrides=rules))
         return out
 
     def init_params(self, cfg, *, seed: int = 0, device=None):
         return T.init_params(cfg, seed=seed, device=device)
+
+    def param_specs(self, cfg, rules):
+        return T.param_specs(cfg, rules)
 
     def abstract_inputs(self, cfg, shape: str) -> dict:
         m = LM_SHAPES[shape]
@@ -65,6 +76,18 @@ class LMArch(ArchDef):
         return {"caches": T.cache_shapes(cfg, B, S),
                 "tokens": meta((B,), I32),
                 "cache_len": meta((), I32)}
+
+    def input_specs(self, cfg, shape: str, rules) -> dict:
+        m = LM_SHAPES[shape]
+        if m["kind"] == "train":
+            tok = rules.spec("batch", "seq")
+            return {"batch": {"tokens": tok, "labels": tok}}
+        if m["kind"] == "prefill":
+            return {"tokens": rules.spec("batch", "seq")}
+        cache = (None, *rules.spec("batch", "kv_seq", "kv_heads", None))
+        return {"caches": [(cache, cache) for _ in cfg.pattern],
+                "tokens": rules.spec("batch"),
+                "cache_len": ()}
 
     def make_step(self, cfg, kind: str):
         if kind == "train":

@@ -11,4 +11,7 @@ FULL = T.LMConfig(
     d_ff=6144, vocab=151936, qk_norm=True, rope_theta=1e6,
     dtype=torch.bfloat16)
 
-ARCH = LMArch("qwen3-1.7b", FULL, smoke_lm("qwen3-1.7b", FULL), long_ok=False)
+# sequence-parallel TP: the residual stream's S split over 'model' (the
+# reference's rules)
+ARCH = LMArch("qwen3-1.7b", FULL, smoke_lm("qwen3-1.7b", FULL), long_ok=False,
+              extra_rules=(("seq", "model"),))

@@ -1,5 +1,5 @@
 """Shared ArchDef for the four recsys towers.  The port's counterpart of
-``repro.configs.recsys_common``, without the mesh rules.
+``repro.configs.recsys_common``.
 
 Shapes (assigned set):
   train_batch     B=65,536                     -> train_step
@@ -42,6 +42,9 @@ class RecsysArch(ArchDef):
     def init_params(self, cfg, *, seed: int = 0, device=None):
         return recsys.init_params(cfg, seed=seed, device=device)
 
+    def param_specs(self, cfg, rules):
+        return recsys.param_specs(cfg, rules)
+
     def _batch(self, cfg, B: int, train: bool) -> dict:
         if cfg.interaction == "self-attn-seq":
             b = {"seq": meta((B, cfg.seq_len), I32)}
@@ -63,6 +66,17 @@ class RecsysArch(ArchDef):
             b["candidates"] = meta((N_CANDIDATES,), I32)
             return {"batch": b}
         return {"batch": self._batch(cfg, m["batch"], m["kind"] == "train")}
+
+    def input_specs(self, cfg, shape: str, rules) -> dict:
+        m = SHAPES[shape]
+        if m["kind"] == "retrieval":
+            specs = {k: () for k in self._batch(cfg, 1, train=False)}
+            specs["candidates"] = rules.spec("batch")  # candidate axis sharded
+            return {"batch": specs}
+        b = self._batch(cfg, m["batch"], m["kind"] == "train")
+        row, mat = rules.spec("batch"), rules.spec("batch", None)
+        return {"batch": {k: mat if v.dim() == 2 else row
+                          for k, v in b.items()}}
 
     def make_step(self, cfg, kind: str):
         if kind == "train":

@@ -95,6 +95,17 @@ def launch_plan(B: int, C: int, d: int, elem: int, vec: bool, k: int,
     return Plan(rs, su, sp, nslice, gx, small, WARPS * per_warp)
 
 
+def work(B: int, C: int, d: int, elem: int, k: int,
+         masked: bool) -> tuple[int, int]:
+    """(bytes, float32 operations) the least one launch must do: the (B, C,
+    d) candidates of ``elem`` bytes, the optional (B, C) mask and the (B, d)
+    float32 queries read once, the (B, k) scores and indices written; one
+    multiply-add (two operations) per candidate element."""
+    nbytes = B * C * d * elem + B * d * 4 + (B * C if masked else 0) \
+        + B * k * 8
+    return nbytes, 2 * B * C * d
+
+
 def _tickets(dev: torch.device) -> torch.Tensor:
     key = (dev.index, backend.stream())
     t = _TICKETS.get(key)

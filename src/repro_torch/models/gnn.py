@@ -16,8 +16,8 @@ Layer (paper eqs. 3-6):
   h_i'  = phi_h(h_i, sum_j m_ij)
 
 Node-classification head for the citation/products tasks; graph-level
-readout (sum pool) for the `molecule` shape.  The reference's sharding
-(``param_specs``, ``constrain``) is left out: the port runs on one device.
+readout (sum pool) for the `molecule` shape.  ``param_specs`` replicates
+every parameter, as the reference does (d_hidden 64: they are tiny).
 """
 from __future__ import annotations
 
@@ -27,6 +27,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch.checkpoint.ckpt import tree_map
 from repro_torch.models import layers as L
 
 
@@ -72,6 +73,11 @@ def init_params(cfg: EGNNConfig, *, seed: int = 0, device=None) -> dict:
         "layers": layers,
         "head": L.init_dense(gen, H, cfg.n_classes, dt, device=dev),
     }
+
+
+def param_specs(cfg: EGNNConfig, rules: L.MeshRules) -> dict:
+    """EGNN parameters are tiny (d_hidden 64): every leaf replicated."""
+    return tree_map(lambda _: (), init_params(cfg, device="meta"))
 
 
 def egnn_layer(p: dict, h, x, edges, n_nodes: int,

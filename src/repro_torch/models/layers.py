@@ -5,9 +5,14 @@ reference's casts: ``rms_norm`` and ``rope`` compute in float32 and cast back
 to the input's dtype, ``softcap`` is applied to whatever dtype it is given
 (the callers pass float32), and ``cross_entropy`` works in float32.
 
-The reference's sharding rules (``MeshRules``, ``DEFAULT_RULES``,
-``constrain``) are left out: the port runs a model on one device, which has
-no mesh to shard over.
+Sharding rules follow the reference's logical-axis pattern: every
+parameter and input dimension is tagged with a logical name, and
+``MeshRules`` maps logical names to mesh axes.  ``MeshRules.spec`` gives a
+tuple of mesh-axis entries (the reference's ``PartitionSpec`` entries: a
+mesh axis, a tuple of mesh axes, or None), which the dry run
+(``launch/dryrun.py``) reads to say what each device would hold.  The
+reference's ``constrain`` is not ported: the port runs a model on one
+device, so nothing inside a step is constrained to a mesh.
 
 Initializers draw from a ``torch.Generator`` with the reference's
 distributions (dense: normal x ``(1/d_in)^0.5``).  They put their tensors on
@@ -20,13 +25,60 @@ segments in a fixed order, the same on the card and on the CPU.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.backend import resolve_device
+
+# ---------------------------------------------------------------------------
+# logical axis rules
+# ---------------------------------------------------------------------------
+
+#: default production rules: batch over (pod, data); model dims over model.
+DEFAULT_RULES: dict[str, Any] = {
+    "batch": ("pod", "data"),
+    "seq": None,              # sequence kept unsharded for training activations
+    "kv_seq": "model",        # decode: split-KV over model axis (flash-decode)
+    "heads": "model",
+    "kv_heads": None,         # GQA kv counts (4-8) don't divide model=16; replicate
+    "embed": None,
+    "mlp": "model",
+    "vocab": "model",
+    "experts": "model",
+    "expert_capacity": ("pod", "data"),  # shard the MoE dispatch buffers
+    "tokens_flat": ("pod", "data"),      # flattened (B*S,) routing arrays
+    "rows": ("pod", "data"),  # embedding-table rows (recsys)
+    "table_dim": "model",
+    "edges": ("pod", "data"), # GNN edge lists
+    "nodes": ("pod", "data"),
+    "stack": None,            # scanned layer stack
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshRules:
+    rules: tuple[tuple[str, Any], ...]
+
+    @classmethod
+    def make(cls, overrides: dict[str, Any] | None = None) -> "MeshRules":
+        r = dict(DEFAULT_RULES)
+        if overrides:
+            r.update(overrides)
+        return cls(tuple(sorted(r.items())))
+
+    def spec(self, *logical: str | None) -> tuple:
+        """One entry per dimension: the mesh axes ``logical`` maps to."""
+        d = dict(self.rules)
+        return tuple(d.get(ax) if ax is not None else None for ax in logical)
+
+
+# ---------------------------------------------------------------------------
+# primitives
+# ---------------------------------------------------------------------------
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,

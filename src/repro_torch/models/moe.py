@@ -15,8 +15,10 @@ Where the port must match the reference exactly:
   stable descending sort.
 * **Capacity.**  ``C = max(8, int(T*K*capacity_factor/E))``.  A copy whose
   slot is at or past C is dropped from the scatter and reads back as 0
-  (the reference's ``mode="drop"`` / ``mode="fill"``): such copies are
-  masked out, their index is never clamped.
+  (the reference's ``mode="drop"`` / ``mode="fill"``): such copies write a
+  spill row past the buffer's E x C rows, which is never read, and are
+  masked to 0 when the experts' outputs are gathered back.  No step needs
+  a data-dependent shape, so the layer also runs on ``meta`` tensors.
 * **Combine order.**  The reference's ``out.at[tok].add(y)`` adds a token's K
   weighted copies to zeros one after another in the sorted order, i.e. by
   expert ascending.  The port adds them in that order too, left to right
@@ -110,20 +112,26 @@ def moe_apply(params: dict, x: torch.Tensor,
     g_flat = gates.reshape(-1)
     order = torch.argsort(e_flat, stable=True)
     e_sorted, tok_sorted, g_sorted = e_flat[order], tok_ids[order], g_flat[order]
-    counts = torch.bincount(e_flat, minlength=E)
-    starts = torch.cumsum(counts, 0) - counts                          # exclusive
+    # each expert's first sorted copy (the exclusive cumsum of the experts'
+    # counts), from ops that need no data-dependent shape, so the dispatch
+    # also runs on ``meta`` tensors
+    starts = torch.searchsorted(e_sorted, torch.arange(
+        E, dtype=e_sorted.dtype, device=x.device))
     slot = torch.arange(T * K, device=x.device) - starts[e_sorted]
     keep = slot < C                       # past capacity: dropped, reads 0
-    e_k, s_k = e_sorted[keep], slot[keep]
+    # a kept copy's row of the (E*C, D) buffer; every dropped copy writes the
+    # spill row E*C, which is never read
+    row = torch.where(keep, e_sorted * C + slot, E * C)
 
-    buf = torch.zeros((E, C, D), dtype=x.dtype, device=x.device)
-    buf[e_k, s_k] = x[tok_sorted[keep]]
+    buf = torch.zeros((E * C + 1, D), dtype=x.dtype, device=x.device)
+    buf[row] = x[tok_sorted]
+    buf = buf[:E * C].view(E, C, D)
     h = F.silu(torch.einsum("ecd,edf->ecf", buf, params["wi_gate"]))
     h = h * torch.einsum("ecd,edf->ecf", buf, params["wi_up"])
     out_buf = torch.einsum("ecf,efd->ecd", h, params["wo"])
 
-    y = torch.zeros((T * K, D), dtype=x.dtype, device=x.device)
-    y[keep] = out_buf[e_k, s_k]
+    y = torch.where(keep[:, None],
+                    out_buf.reshape(E * C, D)[row.clamp(max=E * C - 1)], 0)
     y = y * g_sorted[:, None].to(x.dtype)
     # combine: each token's K copies, expert ascending, added left to right
     # from zeros (the sorted order the reference's scatter-add visits)

@@ -5,9 +5,9 @@ Common skeleton: huge sparse embedding tables -> feature interaction ->
 small MLP -> CTR logit (or next-item scores for SASRec).
 
 ``embedding_bag`` is a gather and a segmented sum (``layers.segment_sum``);
-single-valued Criteo-style lookups are the special case ``_lookup``.  The
-reference's table sharding (``param_specs``) is left out: the port runs a
-model on one device.
+single-valued Criteo-style lookups are the special case ``_lookup``.
+``param_specs`` gives the reference's sharding: tables of 100,000 rows or
+more split by rows, everything else replicated.
 
 Retrieval (``retrieval_scores``, the ``retrieval_cand`` cells) scores one
 query against C candidates and keeps the top k:
@@ -39,6 +39,7 @@ from typing import Any, Sequence
 import torch
 import torch.nn.functional as F
 
+from repro_torch.checkpoint.ckpt import tree_map
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
@@ -157,6 +158,21 @@ def init_params(cfg: RecsysConfig, *, seed: int = 0, device=None) -> dict:
         p["top"] = _mlp_init(gen, (cfg.bot_mlp[-1] + n_inter,) + cfg.top_mlp,
                              dt, dev)
     return p
+
+
+def param_specs(cfg: RecsysConfig, rules: L.MeshRules) -> dict:
+    """Spec tree matching ``init_params``: the big embedding tables
+    (``tables``, ``linear``, ``item_emb`` of 100,000 rows or more) split by
+    rows, the rest (towers are tiny) replicated."""
+    def spec_of(key):
+        def spec(leaf):
+            if key in ("tables", "linear", "item_emb") and \
+                    leaf.shape[0] >= 100_000:
+                return rules.spec("rows", None)
+            return ()
+        return spec
+    return {k: tree_map(spec_of(k), v)
+            for k, v in init_params(cfg, device="meta").items()}
 
 
 # ---------------------------------------------------------------------------
@@ -358,8 +374,14 @@ def retrieval_scores(params, batch, cfg: RecsysConfig, k: int = 100, *,
     on the card; ``kernel_backend="ref"`` asks for its plain version there).
     Tabular: ``candidate_scores`` (chunked), then ``top_k``."""
     if cfg.interaction == "self-attn-seq":
-        h = _sasrec_forward(params, batch["seq"], cfg)[:, -1, :]  # (1, d)
-        cands = _take(params["item_emb"], batch["candidates"])
-        return ops.scored_topk(cands, h[0], k=k,
-                               kernel_backend=kernel_backend)
+        cands, h = sasrec_candidates(params, batch, cfg)
+        return ops.scored_topk(cands, h, k=k, kernel_backend=kernel_backend)
     return top_k(candidate_scores(params, batch, cfg), k)
+
+
+def sasrec_candidates(params, batch, cfg: RecsysConfig
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """What SASRec's retrieval hands K6: the gathered candidate item
+    embeddings (C, d) and the user state of ``batch["seq"]`` (1, S) as (d,)."""
+    h = _sasrec_forward(params, batch["seq"], cfg)[:, -1, :]     # (1, d)
+    return _take(params["item_emb"], batch["candidates"]), h[0]

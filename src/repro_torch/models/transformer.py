@@ -154,6 +154,56 @@ def init_params(cfg: LMConfig, *, seed: int = 0, device=None) -> dict:
     }
 
 
+def param_specs(cfg: LMConfig, rules: L.MeshRules) -> dict:
+    """Spec tree matching ``init_params`` (FSDP + TP, the reference's):
+    one tuple of mesh-axis entries per leaf, the stacked leaves led by an
+    unsharded (n_groups,) axis."""
+    def attn_spec():
+        s = {"wq": rules.spec("embed", "heads"),
+             "wk": rules.spec("embed", "heads"),
+             "wv": rules.spec("embed", "heads"),
+             "wo": rules.spec("heads", "embed")}
+        if cfg.qk_norm:
+            s["q_norm"] = rules.spec(None)
+            s["k_norm"] = rules.spec(None)
+        return s
+
+    def mlp_spec():
+        return {"wi_gate": rules.spec("embed", "mlp"),
+                "wi_up": rules.spec("embed", "mlp"),
+                "wo": rules.spec("mlp", "embed")}
+
+    def block_spec():
+        p = {"attn": attn_spec(),
+             "norm1": rules.spec(None), "norm2": rules.spec(None)}
+        if cfg.post_norms:
+            p["norm1_post"] = rules.spec(None)
+            p["norm2_post"] = rules.spec(None)
+        if cfg.moe:
+            p["moe"] = {
+                "router": rules.spec("embed", "experts"),
+                "wi_gate": rules.spec("experts", "batch", None),
+                "wi_up": rules.spec("experts", "batch", None),
+                "wo": rules.spec("experts", None, "batch"),
+            }
+            if cfg.moe.n_shared:
+                p["moe"]["shared"] = mlp_spec()
+        else:
+            p["mlp"] = mlp_spec()
+        return p
+
+    def stack(spec):
+        return {k: stack(v) if isinstance(v, dict) else (None, *v)
+                for k, v in spec.items()}
+
+    return {
+        "embed": rules.spec("vocab", "embed"),
+        "blocks": [stack(block_spec()) for _ in cfg.pattern],
+        "final_norm": rules.spec(None),
+        "lm_head": rules.spec("vocab", "embed"),
+    }
+
+
 def layers(params: dict, cfg: LMConfig) -> list[tuple[int, int, dict]]:
     """(group, position, block params as views) of every layer, in scan
     order; each stacked leaf is unbound once."""

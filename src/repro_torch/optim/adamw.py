@@ -14,9 +14,8 @@ docstring) and never materializes the clipped float32 gradient tree: the
 clip scale is applied leaf by leaf inside the update.  At qwen3-1.7b that
 tree alone would be 8.1 GB.
 
-Left for later: ``state_specs`` (the optimizer state's PartitionSpecs, equal
-to the parameters' under FSDP) waits for the mesh rules of the dry-run slice
-(ROADMAP Queue 1 item 6); the port keeps a model on one device.
+``state_specs`` gives the optimizer state's sharding specs: the
+parameters' (FSDP), the step replicated.
 """
 from __future__ import annotations
 
@@ -59,6 +58,12 @@ def init_state(params) -> AdamWState:
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=device),
                       m=tree_map(_zeros32, params),
                       v=tree_map(_zeros32, params))
+
+
+def state_specs(param_specs) -> AdamWState:
+    """Optimizer-state specs = parameter specs (FSDP); the step
+    replicated."""
+    return AdamWState(step=(), m=param_specs, v=param_specs)
 
 
 def schedule(cfg: AdamWConfig, step) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Synthetic natural-language-like corpora (Zipf words, lognormal doc lengths).
 
 The port's own copy of ``repro.text.corpus``'s generators: the same seed
-draws the same tokens, document-frequency bands and query words, so the
-port's tests rebuild the reference's corpora without importing it.
+draws the same tokens, document-frequency bands and query words (band
+samples, n-gram queries and the df-weighted "real-log" queries), so the
+port rebuilds the reference's corpora and query sets without importing it.
 
 The paper evaluates on ~1GB of TREC text (219M words, 718,691-word vocabulary,
 345,778 documents).  Scaled-down corpora come from the same statistical
@@ -88,3 +89,53 @@ def sample_queries(df: np.ndarray, band: tuple[int, int], n_queries: int,
         raise ValueError(f"band {band} has only {len(pool)} candidate words")
     return np.stack([rng.choice(pool, size=words_per_query, replace=False)
                      for _ in range(n_queries)])
+
+
+def sample_ngram_queries(doc_tokens, n_queries: int, q_len: int,
+                         seed: int = 0, *, df: np.ndarray | None = None,
+                         df_cap: int | None = None, random_prob: float = 0.0,
+                         vocab_size: int | None = None) -> np.ndarray:
+    """(n_queries, q_len) word-id batches: contiguous n-grams lifted from
+    random documents — positional (phrase/near) queries that actually have
+    occurrences to rank (independent random words almost never co-occur
+    adjacently, which would exercise only the empty-result path).
+
+    df/df_cap:   best-effort rejection (up to 50 draws) of n-grams containing
+                 a word with document frequency above ``df_cap`` — the near
+                 sweep is O(sum of the query words' occurrences), so Zipf-head
+                 stopword grams benchmark the worst case, not the typical one.
+    random_prob: probability of replacing an n-gram with uniform random ids
+                 in [1, vocab_size) (differential tests want no-match cases).
+    """
+    rng = np.random.default_rng(seed)
+    pool = [d for d in doc_tokens if len(d) >= q_len]
+    if not pool:
+        raise ValueError(f"no documents with >= {q_len} tokens to lift "
+                         f"{q_len}-gram queries from")
+    out = np.empty((n_queries, q_len), dtype=np.int64)
+    for i in range(n_queries):
+        if random_prob and rng.random() < random_prob:
+            out[i] = rng.integers(1, vocab_size, size=q_len)
+            continue
+        for _ in range(50):
+            d = pool[int(rng.integers(len(pool)))]
+            j = int(rng.integers(0, len(d) - q_len + 1))
+            out[i] = d[j:j + q_len]
+            if df is None or df_cap is None or int(df[out[i]].max()) <= df_cap:
+                break
+    return out
+
+
+def zipf_real_queries(df: np.ndarray, n_queries: int, words_per_query: int,
+                      seed: int = 0) -> np.ndarray:
+    """'Real-log'-like queries: words drawn with probability ~ df (frequent
+    words are queried more), mimicking the head-heavy TREC million-query log."""
+    rng = np.random.default_rng(seed)
+    w = np.arange(1, len(df))
+    p = df[1:].astype(np.float64)
+    p = np.where(p > 0, p, 0)
+    p = p / p.sum()
+    out = np.empty((n_queries, words_per_query), dtype=np.int64)
+    for q in range(n_queries):
+        out[q] = rng.choice(w, size=words_per_query, replace=False, p=p)
+    return out

@@ -272,14 +272,15 @@ def test_restore_places_every_leaf_on_the_device(tmp_path):
 # ---------------------------------------------------------------------------
 
 def test_registry_holds_the_ten_assigned_architectures():
-    assert sorted(registry.ARCHS) == sorted(r_registry.ASSIGNED)
-    assert registry.ASSIGNED == [n for n in r_registry.ARCHS if n != "wtbc"]
-    want = [(c.arch, c.shape, c.kind, c.skip)
-            for c in r_registry.all_cells(include_paper=False)]
-    got = [(c.arch, c.shape, c.kind, c.skip) for c in registry.all_cells()]
-    assert got == want
-    with pytest.raises(KeyError, match="dry-run slice"):
-        registry.get("wtbc")
+    assert list(registry.ARCHS) == list(r_registry.ARCHS)
+    assert registry.ASSIGNED == r_registry.ASSIGNED
+    for paper in (False, True):
+        want = [(c.arch, c.shape, c.kind, c.skip)
+                for c in r_registry.all_cells(include_paper=paper)]
+        got = [(c.arch, c.shape, c.kind, c.skip)
+               for c in registry.all_cells(include_paper=paper)]
+        assert got == want
+    assert registry.get("wtbc").family == "retrieval"
     with pytest.raises(KeyError, match="available"):
         registry.get("gpt-5")
     for name in registry.ARCHS:
@@ -318,5 +319,8 @@ def test_train_cli_runs_and_resumes(tmp_path, arch_name):
 
 
 def test_train_cli_rejects_an_unknown_arch(tmp_path):
+    r = _train("--arch", "gpt-5", "--steps", "1", cwd=tmp_path)
+    assert r.returncode != 0 and "unknown --arch 'gpt-5'" in r.stderr
+    # the paper's deployment is known but has no train step
     r = _train("--arch", "wtbc", "--steps", "1", cwd=tmp_path)
-    assert r.returncode != 0 and "dry-run slice" in r.stderr
+    assert r.returncode != 0 and "use make_query_fn" in r.stderr
