@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (WTBC-DR, WTBC-DRB,
 positional search, the serving stack, document-sharded search, the
-quickstart, the LM serving path, the recsys towers and EGNN, training, and
-the paper's deployment with the dry run).
+quickstart, the LM serving path, the recsys towers and EGNN, training, the
+paper's deployment with the dry run, and expert-parallel MoE at full
+width).
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -255,6 +256,28 @@ nothing falls back to the CPU):
    ``memory_allocated``'s growth within the allocator's rounding.  (c)
    ``dryrun.run`` of the ``wtbc`` and qwen3-1.7b cells on the single-pod
    mesh and their roofline rows.
+20. MoE at full width, expert-parallel (plain PyTorch: it launches none of
+   the port's kernels, and the run checks that).  (a) The llama4-scout and
+   qwen3-moe smoke configs in float32 under (data, model) = (1, 4) and
+   (2, 2), every shard on the card, against the CPU: ``forward``,
+   ``prefill``, 4 ``decode_step``s and one train step through EP, which
+   the same step on experts placed per shard equals; one MoE layer on a
+   batch that overflows the dense capacity but not EP's: EP
+   card == CPU, and EP differs from the dense dispatch.  (b) qwen3-moe-235b
+   and (c) llama4-scout at full width cut to 4 layers (llama4: one pattern
+   group, three chunked layers and a global one), bf16, random weights,
+   EP over 4 shards of 32 / 4 experts placed on ``cuda:0`` by
+   ``place_experts`` (views: nothing copied): ``prefill`` of 2 x 4,096
+   (C = 1,280 a local expert), 32 greedy ``decode_step``s, ``forward`` over
+   the extended sequence; decode against forward as 16b on the tokens
+   routed alike in every layer with every copy kept (a top-k tie broken
+   the other way by bf16 noise moves a token by a whole expert; those are
+   counted); one layer's EP at M = 4 against M = 1 (the same slots) and
+   the dense dispatch, 16 of its tokens against a float64 recomputation on
+   the host (``MOE_F64_REL``); prefill ms at M = 4, M = 1 and dense, decode
+   ms a step, the device's busy share and top kernels of one prefill,
+   ``max_memory_allocated``, beside the card's name and power limit.  Each
+   model is freed before the next.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -262,6 +285,7 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -932,7 +956,14 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device is available; this script runs "
               "only on the card", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    src = Path(__file__).resolve().parent / "src"
+    if not (src / "repro_torch").is_dir():
+        # the script copied out of the repository, without the port
+        print(f"chip_smoke: the port is not beside this script ({src} has no "
+              "repro_torch); run it from the repository's root",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(src))
     from repro_torch.core import mega, ranked
     from repro_torch.engine import EngineConfig, SearchEngine
     from repro_torch.kernels import backend, beam_step, wavelet_descent
@@ -1232,6 +1263,7 @@ def main(argv=None) -> int:
     dep = timed_phase("19", deploy_phase, "cuda",
                       None if args.docs == QUARTER_DOCS else args.docs,
                       kernels[0]["ms"], tr["qwen3-1.7b"]["placed"])
+    moe_run = timed_phase("20", moe_phase)
     log("seconds per phase: " + json.dumps(
         {k_: round(v, 1) for k_, v in phase_s.items()}))
     for k_ in kernels:
@@ -1249,6 +1281,7 @@ def main(argv=None) -> int:
         k_["recsys_launches"] = rs["launches"][k_["name"]]
         k_["train_launches"] = tr["launches"][k_["name"]]
         k_["deploy_launches"] = dep["launches"][k_["name"]]
+        k_["moe_launches"] = moe_run["launches"][k_["name"]]
     log(json.dumps({"serving": serving}))
     log(json.dumps({"sharded": sharded}))
     log(json.dumps({"quickstart": quick}))
@@ -1256,6 +1289,7 @@ def main(argv=None) -> int:
     log(json.dumps({"recsys": rs}))
     log(json.dumps({"train": tr}))
     log(json.dumps({"deploy": dep}))
+    log(json.dumps({"moe": moe_run}))
     log(json.dumps({"launches": counts,
                     "kernels": [k["name"] for k in kernels]}))
     log(json.dumps({"kernels": kernels}))
@@ -4772,6 +4806,511 @@ def deploy_phase(device: str = "cuda", n_docs: int | None = None,
     part_done("dry run")
     out["seconds"] = secs
     log("phase 19 seconds per part: " + json.dumps(secs))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 20: MoE at full width, expert-parallel
+# ---------------------------------------------------------------------------
+
+MOE_MODS = ("qwen3_moe_235b_a22b", "llama4_scout_17b_a16e")
+MOE_MESHES = {"(1, 4)": (("data", "model"), (1, 4)),
+              "(2, 2)": (("data", "model"), (2, 2))}
+MOE_SHARDS = 4            # model shards at full width, every one on cuda:0
+MOE_LAYERS = 4            # full width cut in depth: one card's 80 GB
+MOE_B, MOE_S, MOE_STEPS = 2, 4096, 32
+MOE_SAMPLE = 16           # tokens of one layer recomputed in float64
+MOE_F64_REL = 0.03        # bf16 layer vs float64, of the sampled rows' max
+                          # |value|: bf16 rounds the FFN's hidden state, each
+                          # copy and each add of the combine (2^-8 each)
+MOE_AGREE_MIN = 0.5       # share of decode tokens routed as the forward's
+PLACED_TRAIN_TOL = 1e-6   # a train step on placed experts vs unplaced: only
+                          # the float32 order of the global norm's sum differs
+
+
+def _moe_mesh(sizes):
+    from repro_torch.launch.mesh import MeshShape
+    return MeshShape(("data", "model"), sizes)
+
+
+def _clone(tree):
+    from torch.utils import _pytree as pytree
+    return pytree.tree_map(lambda t: t.clone(), tree)
+
+
+def _placed_err(placed, plain) -> float:
+    """Largest |difference| between an LM tree whose experts
+    ``place_experts`` split into shards, joined back along the experts'
+    dim, and an unsplit tree."""
+    import torch
+    from repro_torch.checkpoint import ckpt
+
+    def join(v):
+        return torch.cat(v, dim=-3) if isinstance(v, tuple) else v
+    joined = dict(placed, blocks=[
+        dict(b, moe={k: join(v) for k, v in b["moe"].items()})
+        for b in placed["blocks"]])
+    return max(float((x.double() - y.double()).abs().max())
+               for x, y in zip(ckpt.tree_leaves(joined),
+                               ckpt.tree_leaves(plain)))
+
+
+@contextlib.contextmanager
+def _routing_log():
+    """The expert ids (T, K) of every MoE router call inside, in call
+    order, in the list it yields: a check compares two runs' choices there
+    (a top-k tie broken the other way moves a token's output by a whole
+    expert's).  The EP path routes once a token block, so under a mesh of
+    one block the list holds one entry a MoE layer."""
+    from repro_torch.models import moe as M
+    real, log = M._router, []
+
+    def router(params, x, cfg):
+        out = real(params, x, cfg)
+        log.append(out[1].detach())
+        return out
+    M._router = router
+    try:
+        yield log
+    finally:
+        M._router = real
+
+
+def moe_smoke(device: str = "cuda") -> dict:
+    """Phase 20a: the llama4-scout and qwen3-moe smoke configs in float32
+    (TF32 off) under the meshes (data, model) = (1, 4) and (2, 2), every
+    shard on ``device``, the same weights there and on the CPU: ``forward``,
+    ``prefill`` and 4 ``decode_step``s (expert parallelism at 2 tokens too)
+    within ``LM_FP32_TOL``; one ``make_step(cfg, "train", mesh=...)`` step
+    through EP as phase 18a holds it, and the same step on the card with
+    the experts placed per shard (``place_experts``) within
+    ``PLACED_TRAIN_TOL`` of it; then one MoE layer on a batch whose
+    busiest expert overflows the dense capacity but not EP's doubled one:
+    EP on the card equals EP on the CPU and differs from the dense
+    dispatch, which drops copies."""
+    import importlib
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    out = {}
+    for mod in MOE_MODS:
+        arch = importlib.import_module(f"repro_torch.configs.{mod}").ARCH
+        cfg = arch.config(smoke=True)
+        cpu = arch.init_params(cfg, seed=SEED, device="cpu")
+        dev = pytree.tree_map(lambda t: t.to(device, copy=True), cpu)
+        toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+            0, cfg.vocab, (2, 16)).astype(np.int32))
+        for label, (_, sizes) in MOE_MESHES.items():
+            mesh = _moe_mesh(sizes)
+            check(M.use_ep(toks.numel(), cfg.moe, mesh) and
+                  M.use_ep(2, cfg.moe, mesh), f"{mod} {label}: no EP")
+            got = {}
+            for d, params in ((device, dev), ("cpu", cpu)):
+                t = toks.to(d)
+                logits, aux = T.forward(params, t, cfg, mesh=mesh)
+                pl, pc = arch.make_step(cfg, "prefill", mesh=mesh)(params, t)
+                step = arch.make_step(cfg, "decode", mesh=mesh)
+                ring = T.init_cache(cfg, 2, 16, device=d)
+                dec = []
+                for i in range(4):
+                    lg, ring = step(params, ring, t[:, i], i)
+                    dec.append(lg)
+                got[d] = (logits, pl, torch.stack(dec), aux, pc, ring)
+            a, b = got[device], got["cpu"]
+            errs = {"forward": _lm_err(a[0], b[0]),
+                    "prefill": _lm_err(a[1], b[1]),
+                    "decode": _lm_err(a[2], b[2]), "aux": _lm_err(a[3], b[3]),
+                    "caches": max(_lm_err(x, y) for ca, cb in
+                                  ((a[4], b[4]), (a[5], b[5]))
+                                  for pa, pb in zip(ca, cb)
+                                  for x, y in zip(pa, pb))}
+            check(all(bool(torch.isfinite(x).all()) for x in a[:4]),
+                  f"{mod} {label}: non-finite outputs on {device}")
+            for what, err in errs.items():
+                check(err <= LM_FP32_TOL * (1 + float(b[0].abs().max())),
+                      f"{mod} {label}: EP {what} differs between {device} "
+                      f"and the CPU by {err:.3e}")
+            # one train step through EP from the same state on both sides
+            batch = _train_batch(arch, cfg, SEED, 0, "cpu")
+            tstep = arch.make_step(cfg, "train", mesh=mesh)
+            pc_, _, mc = tstep(_clone(cpu), adamw.init_state(cpu), batch)
+            pd_, _, md = tstep(_clone(dev), adamw.init_state(dev),
+                               {k: v.to(device) for k, v in batch.items()})
+            terr = {k: abs(float(md[k]) - float(mc[k])) /
+                    max(abs(float(mc[k])), 1.0) for k in mc}
+            for k, e in terr.items():
+                check(np.isfinite(float(md[k])) and e <= TRAIN_REL,
+                      f"{mod} {label}: EP train metric {k} {float(md[k])} on "
+                      f"{device} vs {float(mc[k])} on the CPU")
+            share, worst = _step_agree(pd_, pc_, cpu, float(mc["lr"]),
+                                       arch.optimizer_cfg().weight_decay)
+            check(share >= 0.999 and worst <= 1.0,
+                  f"{mod} {label}: EP train step's parameters on {device} vs "
+                  f"the CPU: {share:.5f} within 1e-3 lr, worst {worst:.3f}")
+            # the same step on the experts placed per shard (views on the
+            # card): the one router leaf takes every shard's gradient once
+            n_sh = mesh.shape["model"]
+            placed = T.place_experts(_clone(dev), cfg, n_sh, [device] * n_sh)
+            pq_, _, _ = tstep(placed, adamw.init_state(placed),
+                              {k: v.to(device) for k, v in batch.items()})
+            placed_err = _placed_err(pq_, pd_)
+            check(placed_err <= PLACED_TRAIN_TOL,
+                  f"{mod} {label}: a train step on placed experts differs "
+                  f"from the unplaced step by {placed_err:.3e}")
+            out[f"{cfg.name} {label}"] = {
+                **errs, "train_metric_rel_err": max(terr.values()),
+                "train_params_within_1e-3_lr": share,
+                "train_worst_over_step_bound": worst,
+                "train_placed_vs_unplaced": placed_err}
+            log(f"MoE {cfg.name} EP {label} ({device} vs CPU, fp32): max "
+                f"|err| " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                + f"; train step: loss {float(md['loss']):.5f}, metrics "
+                f"{max(terr.values()):.2e}, parameters {share:.5f} within "
+                f"1e-3 lr; placed experts vs unplaced {placed_err:.3e}")
+        out[f"{cfg.name} overflow"] = moe_overflow(cfg, device)
+    return out
+
+
+def moe_overflow(cfg, device: str) -> dict:
+    """One MoE layer of ``cfg``'s widths (float32) under (1, 4) on 64 tokens
+    of which n lean to expert 0, n halfway between the dense capacity and
+    EP's: EP keeps every copy, the dense dispatch drops some."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as M
+    mesh, T_, D = _moe_mesh((1, 4)), 64, cfg.d_model
+    mc = cfg.moe
+    p = M.init_moe(L.generator(SEED, "cpu"), D, mc, torch.float32,
+                   device="cpu")
+    c_dense, c_ep = M.capacity(T_, mc), M.ep_capacity(T_, mc, 4)
+    n_hot = (c_dense + c_ep) // 2
+    rng = np.random.default_rng(SEED)
+    x = rng.standard_normal((T_, D)).astype(np.float32)
+    x[:, 0] = -1.0
+    x[:n_hot, 0] = 5.0
+    p["router"][0, 0] = 5.0
+    x = torch.from_numpy(x)
+    load = int((M._router(p, x, mc)[1] == 0).sum())
+    check(c_dense < load <= c_ep, f"overflow batch: expert 0 holds {load} "
+          f"copies, dense capacity {c_dense}, EP's {c_ep}")
+    pd = {k: (v.to(device) if isinstance(v, torch.Tensor) else
+              {kk: vv.to(device) for kk, vv in v.items()})
+          for k, v in p.items()}
+    ep_dev = M.moe_apply(pd, x.to(device), mc, mesh)[0]
+    ep_cpu = M.moe_apply(p, x, mc, mesh)[0]
+    dense = M.moe_apply_dense(p, x, mc)[0]
+    err, gap = _lm_err(ep_dev, ep_cpu), _lm_err(ep_cpu, dense)
+    check(err <= LM_FP32_TOL * (1 + float(ep_cpu.abs().max())),
+          f"overflow batch: EP on {device} vs the CPU {err:.3e}")
+    check(gap > 0.1, f"overflow batch: EP equals the dense dispatch ({gap})")
+    log(f"MoE {cfg.name} overflow batch: expert 0 holds {load} copies "
+        f"(dense capacity {c_dense}, EP {c_ep}); EP {device} vs CPU {err:.3e},"
+        f" EP vs dense max |diff| {gap:.3f}")
+    return {"load": load, "dense_capacity": c_dense, "ep_capacity": c_ep,
+            "ep_err": err, "ep_vs_dense": gap}
+
+
+def _moe_small(cfg):
+    """A CPU rehearsal's cut of a full config: same pattern and top-k;
+    room for every copy (at 128 tokens a narrow router overflows the
+    capacity, and prefill and forward then drop different copies)."""
+    import dataclasses
+    return dataclasses.replace(
+        cfg, d_model=128, n_heads=4, n_kv_heads=2, d_head=32, vocab=1024,
+        window=min(cfg.window, 128) if cfg.window else 0,
+        moe=dataclasses.replace(cfg.moe, n_experts=min(cfg.moe.n_experts, 16),
+                                d_ff=64, capacity_factor=8.0))
+
+
+def _kept(eidx: np.ndarray, C: int, E: int) -> np.ndarray:
+    """(T, K) mask of the copies a block's dispatch keeps: fewer than C
+    earlier copies, in (token, k) order, chose the same expert."""
+    e = eidx.reshape(-1)
+    order = np.argsort(e, kind="stable")
+    rank = np.empty_like(order)
+    starts = np.searchsorted(e[order], np.arange(E))
+    rank[order] = np.arange(e.size) - starts[e[order]]
+    return (rank < C).reshape(eidx.shape)
+
+
+def moe_layer_f64(p, h, gates, eidx, C: int, cfg, rng) -> dict:
+    """``MOE_SAMPLE`` tokens of one MoE layer's input ``h`` recomputed in
+    float64 on the host from the layer's weights, the path's gates and its
+    kept copies (a copy is kept when fewer than C earlier copies, in (token,
+    k) order, chose its expert): the routed experts' SwiGLU weighted by the
+    gates, plus the shared expert."""
+    T_, K = eidx.shape
+    keep = _kept(eidx.cpu().numpy(), C, cfg.n_experts)
+    rows = np.sort(rng.choice(T_, MOE_SAMPLE, replace=False))
+    x = h[rows].double().cpu().numpy()
+    g = gates[rows].double().cpu().numpy()
+    ids = eidx[rows].cpu().numpy()
+    y = np.zeros_like(x)
+
+    def f64(t):
+        return t.float().cpu().numpy().astype(np.float64)
+
+    def swiglu(xr, wg, wu, wo):
+        a = xr @ wg
+        return (a / (1 + np.exp(-a)) * (xr @ wu)) @ wo
+    for ex in np.unique(ids):
+        wg, wu, wo = (f64(p[k][ex]) for k in ("wi_gate", "wi_up", "wo"))
+        for i, r in enumerate(rows):
+            for k in range(K):
+                if ids[i, k] == ex and keep[r, k]:
+                    y[i] += g[i, k] * swiglu(x[i], wg, wu, wo)
+    if cfg.n_shared:
+        y += swiglu(x, *(f64(p["shared"][k]) for k in ("wi_gate", "wi_up",
+                                                        "wo")))
+    return {"rows": rows, "want": y, "dropped": int((~keep).sum())}
+
+
+def moe_full_width(mod: str, device: str = "cuda", small: bool = False
+                   ) -> dict:
+    """Phase 20b/c: ``mod`` at full width cut to ``MOE_LAYERS`` layers in
+    bf16 (random weights from a seeded generator on the card), expert
+    parallelism over ``MOE_SHARDS`` shards placed on the card once
+    (``place_experts``: views, nothing copied): ``prefill`` of B x S = 2 x
+    4,096, the caches placed into rings of S + 32 slots, 32 greedy
+    ``decode_step``s, ``forward`` over the extended sequence; then one MoE
+    layer: EP at M = 4 against M = 1 and the dense dispatch, and 16 tokens
+    against a float64 recomputation on the host.  Decode against forward as
+    phase 16b, on the tokens routed alike: a top-k tie broken the other way
+    in any layer (bf16 noise moves a router logit) changes a token's output
+    by a whole expert's, so those tokens are counted and left out."""
+    import importlib
+    import dataclasses
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    arch = importlib.import_module(f"repro_torch.configs.{mod}").ARCH
+    cfg = dataclasses.replace(arch.config(), n_layers=MOE_LAYERS)
+    B, S, N = MOE_B, MOE_S, MOE_STEPS
+    if small:
+        cfg, S, N = _moe_small(cfg), 64, 4
+    on_card = device == "cuda"
+    mesh4, mesh1 = _moe_mesh((1, MOE_SHARDS)), _moe_mesh((1, 1))
+    _peak(device, reset=True)
+    t0 = time.perf_counter()
+    base = arch.init_params(cfg, seed=SEED, device=device)
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    w_bytes = sum(t.numel() * t.element_size()
+                  for t in pytree.tree_leaves(base))
+    alloc = torch.cuda.memory_allocated() if on_card else None
+    params = T.place_experts(base, cfg, MOE_SHARDS, [device] * MOE_SHARDS)
+    if on_card:
+        check(torch.cuda.memory_allocated() == alloc,
+              "placing the shards on their own card copied weights")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=device,
+                         dtype=torch.int32)
+    prefill = arch.make_step(cfg, "prefill", mesh=mesh4)
+    decode = arch.make_step(cfg, "decode", mesh=mesh4)
+    check(M.use_ep(B * S, cfg.moe, mesh4) and M.use_ep(B, cfg.moe, mesh4),
+          f"{cfg.name}: no EP at {B} x {S} tokens")
+
+    # ---- prefill: a first call, then the timed ones ------------------------
+    first_ms = wall_ms(lambda: prefill(params, toks), device)[0]
+    prefill_ms = _ms(lambda: prefill(params, toks), device, reps=2, warm=0)
+    logits, pre = prefill(params, toks)
+    check(tuple(logits.shape) == (B, S, cfg.vocab)
+          and logits.dtype == torch.float32, f"prefill logits {logits.shape}")
+    check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
+    check(all(bool(torch.isfinite(x).all()) for p in pre for x in p),
+          "non-finite prefill caches")
+    first = logits[:, -1].argmax(-1).to(torch.int32)
+    del logits
+
+    # ---- the caches placed into decode rings, 32 greedy steps --------------
+    caches = T.init_cache(cfg, B, S + N, device=device)
+    for (pk, pv), (rk, rv) in zip(pre, caches):
+        pos = torch.arange(max(0, S - rk.shape[2]), S, device=device)
+        rk[:, :, pos % rk.shape[2]] = pk[:, :, pos]
+        rv[:, :, pos % rv.shape[2]] = pv[:, :, pos]
+    del pre
+    inputs, outs, step_ms, dec_routes = [first], [], [], []
+    for t in range(N):
+        t0 = time.perf_counter()
+        with _routing_log() as routes:
+            lg, caches = decode(params, caches, inputs[-1], S + t)
+        _sync(device)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(lg)
+        inputs.append(lg.argmax(-1).to(torch.int32))
+        dec_routes.append([r.sort(-1).values for r in routes])
+    dec = torch.stack(outs, 1)                                   # (B, N, V)
+    check(bool(torch.isfinite(dec).all()), "non-finite decode logits")
+
+    # ---- consistency with forward over the extended sequence --------------
+    ext = torch.cat([toks, torch.stack(inputs[:N], 1)], 1)      # (B, S + N)
+    with _routing_log() as routes:
+        fwd_ms, (full, _aux) = wall_ms(lambda: T.forward(
+            params, ext, cfg, mesh=mesh4), device)
+    fwd_routes = [r.sort(-1).values for r in routes]
+    del routes
+    ref = full[:, S:].clone()
+    del full
+    # the same forward again: is the first call's time set-up?
+    fwd2_ms = wall_ms(lambda: T.forward(params, ext, cfg, mesh=mesh4
+                                        )[0].shape, device)[0]
+    # a (b, t) is routed alike when every layer chose the same experts and
+    # the forward kept every copy (decode's 2 tokens never overflow)
+    c_fwd = M.ep_capacity(B * (S + N), cfg.moe, MOE_SHARDS)
+    alike = torch.ones((B, N), dtype=torch.bool, device=device)
+    fwd_dropped = 0
+    for layer, fr in enumerate(fwd_routes):
+        kept = torch.from_numpy(_kept(fr.cpu().numpy(), c_fwd,
+                                      cfg.moe.n_experts)).to(device)
+        fwd_dropped += int((~kept).sum())
+        fr = fr.reshape(B, S + N, -1)[:, S:]
+        dr = torch.stack([dec_routes[t][layer] for t in range(N)], 1)
+        alike &= (fr == dr).all(-1) & kept.reshape(B, S + N, -1)[:, S:].all(-1)
+    n_alike = int(alike.sum())
+    check(n_alike >= MOE_AGREE_MIN * B * N,
+          f"{cfg.name}: decode routed {n_alike} of {B * N} tokens as the "
+          "forward did")
+    diff = (dec - ref).abs()
+    max_err = float(diff[alike].max())
+    mean_err = float(diff.mean(-1)[alike].max())
+    top2 = ref.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    agree = ref.argmax(-1) == torch.stack(inputs[1:], 1).long()
+    decided = (margin > 2 * LM_BF16_MAX) & alike
+    check(max_err <= LM_BF16_MAX and mean_err <= LM_BF16_MEAN,
+          f"{cfg.name}: decode logits differ from forward's on the tokens "
+          f"routed alike: max |err| {max_err:.4f} (limit {LM_BF16_MAX}), "
+          f"worst step's mean {mean_err:.4f} (limit {LM_BF16_MEAN})")
+    check(bool(agree[decided].all()), f"{cfg.name}: a greedy token differs "
+          "from forward's argmax where its margin exceeds "
+          f"{2 * LM_BF16_MAX} and its routing matched")
+    log(f"MoE {cfg.name} full width ({MOE_LAYERS} layers) bf16, EP over "
+        f"{MOE_SHARDS} shards: decode vs forward over {S + N} tokens: "
+        f"{fwd_dropped} copies dropped by the forward's capacity {c_fwd}; "
+        f"{n_alike} of {B * N} tokens routed alike in every layer; on them "
+        f"max |err| {max_err:.4f}, worst step's mean {mean_err:.5f}; greedy "
+        f"== forward's argmax at {int(agree[alike].sum())} of {n_alike}, at "
+        f"all {int(decided.sum())} whose top-2 margin exceeds "
+        f"{2 * LM_BF16_MAX}; over every token max |err| "
+        f"{float(diff.max()):.4f}")
+    del ref, diff, dec
+
+    # ---- one MoE layer: M = 4 against M = 1 and dense; float64 -----------
+    p0 = T.layers(base, cfg)[0][2]["moe"]
+    h = torch.randn((B * S, cfg.d_model), generator=gen, device=device,
+                    dtype=torch.float32).to(cfg.dtype)
+    out4 = M.moe_apply(p0, h, cfg.moe, mesh4)[0]
+    out1 = M.moe_apply(p0, h, cfg.moe, mesh1)[0]
+    outd = M.moe_apply_dense(p0, h, cfg.moe)[0]
+    C = M.ep_capacity(B * S, cfg.moe, MOE_SHARDS)
+    check(C == M.ep_capacity(B * S, cfg.moe, 1), "M = 1 and M = 4 slots")
+    layer_m4_m1 = _lm_err(out4, out1)
+    layer_m4_dense = _lm_err(out4, outd)
+    gates, eidx = M._router(p0, h, cfg.moe)[:2]
+    f64 = moe_layer_f64(p0, h, gates, eidx, C, cfg.moe,
+                        np.random.default_rng(SEED))
+    got = out4[torch.from_numpy(f64["rows"]).to(device)].double().cpu().numpy()
+    f64_err = float(np.abs(got - f64["want"]).max())
+    scale = float(np.abs(f64["want"]).max())
+    check(np.isfinite(got).all() and f64_err <= MOE_F64_REL * scale,
+          f"{cfg.name}: layer 0 vs float64 on {MOE_SAMPLE} tokens: max |err| "
+          f"{f64_err:.4g} of {scale:.4g} (limit {MOE_F64_REL})")
+    log(f"MoE {cfg.name} layer 0 at {B * S} tokens (C = {C} a local expert, "
+        f"{f64['dropped']} of {eidx.numel()} copies dropped): EP M = 4 vs "
+        "M = 1 " + ("bitwise equal" if layer_m4_m1 == 0 else
+                    f"max |diff| {layer_m4_m1:.4g}") + "; vs dense "
+        f"(C = {M.capacity(B * S, cfg.moe)}) max |diff| {layer_m4_dense:.4g};"
+        f" {MOE_SAMPLE} tokens vs float64 on the host: max |err| "
+        f"{f64_err:.4g} of max |value| {scale:.4g}")
+    del out4, out1, outd, h
+
+    # ---- prefill end to end: M = 4 against M = 1; times of the three ------
+    pre1 = arch.make_step(cfg, "prefill", mesh=mesh1)
+    pred = arch.make_step(cfg, "prefill")
+    l4 = prefill(params, toks)[0]
+    l1 = pre1(base, toks)[0]
+    e2e_m4_m1 = _lm_err(l4, l1)
+    del l4, l1
+    m1_ms = _ms(lambda: pre1(base, toks), device, reps=2)
+    dense_ms = _ms(lambda: pred(base, toks), device, reps=2)
+    busy = wall = None
+    top = []
+    if on_card:
+        busy, wall, top = device_breakdown(lambda: prefill(params, toks), 1)
+    peak = _peak(device)
+    dec_ms = float(np.median(step_ms))
+    row = {"layers": MOE_LAYERS, "shards": MOE_SHARDS, "weight_bytes": w_bytes,
+           "init_s": init_s, "prefill_first_ms": first_ms,
+           "prefill_ms": prefill_ms, "prefill_m1_ms": m1_ms,
+           "prefill_dense_ms": dense_ms,
+           "prefill_tokens_per_s": None if prefill_ms is None else
+           B * S / prefill_ms * 1e3,
+           "prefill_device_busy_ms": busy, "prefill_wall_ms": wall,
+           "prefill_top": top, "decode_ms_per_step": dec_ms,
+           "decode_ms_steps": step_ms, "forward_ms": fwd_ms,
+           "forward_again_ms": fwd2_ms,
+           "max_memory_allocated": peak, "routed_alike": n_alike,
+           "forward_dropped_copies": fwd_dropped,
+           "tokens": B * N, "max_abs_err": max_err,
+           "worst_step_mean_abs_err": mean_err,
+           "layer_m4_vs_m1": layer_m4_m1, "layer_m4_vs_dense": layer_m4_dense,
+           "prefill_m4_vs_m1": e2e_m4_m1, "layer_f64_err": f64_err,
+           "layer_f64_scale": scale, "capacity": C}
+    log(f"MoE {cfg.name} full width on "
+        f"{torch.cuda.get_device_name(0) if on_card else device}: "
+        f"{w_bytes} weight bytes, prefill {B}x{S} {prefill_ms} ms (EP M = 4; "
+        f"first call {first_ms:.1f} ms; M = 1 {m1_ms} ms, dense {dense_ms} "
+        f"ms; device busy {busy} of {wall} ms), decode {dec_ms:.3f} ms per "
+        f"step (median of {N}, host clock to a synchronize), forward over "
+        f"{S + N} {fwd_ms:.1f} ms (again {fwd2_ms:.1f} ms), "
+        f"max_memory_allocated {peak} bytes; "
+        "prefill logits M = 4 vs M = 1 " + ("bitwise equal" if e2e_m4_m1 == 0
+                                             else f"max |diff| {e2e_m4_m1:.4g}"))
+    if top:
+        log(f"MoE {cfg.name} prefill top device kernels (ms): "
+            + json.dumps(top))
+    return row
+
+
+def moe_phase(device: str = "cuda", small: bool = False) -> dict:
+    """Phase 20: MoE at full width, expert-parallel (launch counters reset
+    just before, read just after: the path is plain PyTorch and launches
+    none of the port's CUDA kernels).  Each full-width model is freed before
+    the next."""
+    import gc
+    import torch
+    from repro_torch.kernels import backend
+    backend.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = {"smoke": moe_smoke(device)}
+    secs = {"smoke": round(time.perf_counter() - t0, 1)}
+    if device == "cuda" or small:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True).stdout.strip() if device == "cuda" \
+            else "not measured (CPU rehearsal)"
+        for mod in MOE_MODS:
+            t0 = time.perf_counter()
+            out[mod] = moe_full_width(mod, device, small=small)
+            secs[mod] = round(time.perf_counter() - t0, 1)
+            r = out[mod]
+            log(f"MoE {mod} times ({smi}): prefill {r['prefill_ms']} ms "
+                f"(EP M = 4), M = 1 {r['prefill_m1_ms']} ms, dense "
+                f"{r['prefill_dense_ms']} ms; decode "
+                f"{r['decode_ms_per_step']:.3f} ms per step; "
+                f"max_memory_allocated {r['max_memory_allocated']}")
+            gc.collect()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+    counts = backend.launch_counts()
+    check(not any(counts.values()), f"the MoE path launched {counts}")
+    out["launches"] = counts
+    out["seconds"] = secs
+    log("phase 20 seconds per part: " + json.dumps(secs))
     return out
 
 

@@ -4,7 +4,9 @@ sharding specs, and the functions that build a step.  The port's
 counterpart of ``repro.configs.base``.
 
 Every architecture provides an ArchDef; ``arch.make_step(cfg, kind)`` gives
-the step a cell runs, ``arch.abstract_inputs(cfg, shape)`` its inputs and
+the step a cell runs (the LM family's also takes ``mesh=`` for its MoE
+layers' expert parallelism),
+``arch.abstract_inputs(cfg, shape)`` its inputs and
 ``arch.abstract_params(cfg)`` its parameters; ``arch.param_specs(cfg,
 rules)`` and ``arch.input_specs(cfg, shape, rules)`` give, per leaf, the
 mesh axes each dimension would be split over (``launch/dryrun.py`` reads

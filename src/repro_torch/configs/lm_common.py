@@ -13,6 +13,7 @@ Shapes (the assigned set — seq_len x global_batch):
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -89,16 +90,21 @@ class LMArch(ArchDef):
                 "tokens": rules.spec("batch"),
                 "cache_len": ()}
 
-    def make_step(self, cfg, kind: str):
+    def make_step(self, cfg, kind: str, *, mesh=None):
+        """The cell's step; ``mesh`` (a ``launch/mesh.MeshShape``) goes to
+        every MoE layer, which takes expert parallelism where the reference
+        would (``models/moe.py``)."""
         if kind == "train":
-            return self.train_wrapper(T.loss_fn, cfg)
+            return self.train_wrapper(functools.partial(T.loss_fn, mesh=mesh),
+                                      cfg)
         if kind == "prefill":
             def prefill_step(params, tokens):
-                return T.prefill(params, tokens, cfg)
+                return T.prefill(params, tokens, cfg, mesh=mesh)
             return prefill_step
         if kind == "decode":
             def serve_step(params, caches, tokens, cache_len):
-                return T.decode_step(params, caches, tokens, cache_len, cfg)
+                return T.decode_step(params, caches, tokens, cache_len, cfg,
+                                     mesh=mesh)
             return serve_step
         raise ValueError(kind)
 

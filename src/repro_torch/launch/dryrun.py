@@ -17,6 +17,31 @@ writes one JSON record holding:
   step run once on ``meta`` tensors at full width: a global total, and per
   device under an even-split assumption.  The counter sees matmul-like ops
   only (an FM tower counts almost nothing).
+* **the MoE layers' program** — the step is built with the cell's mesh
+  (``make_step(cfg, kind, mesh=...)``), so where the reference lowers a MoE
+  layer through expert parallelism (a mesh with a ``model`` axis, the
+  tokens splitting into its ``pod`` x ``data`` blocks, the experts into its
+  shards) the port counts its own EP path (``models/moe.moe_apply_ep``):
+  per-block capacity, doubled, E/M experts a shard.  Each device runs one
+  (block, shard) pair a layer, all of one shape, so for the expert part
+  ``per_device = global / mesh.size`` is exact; the router runs once a
+  block (the reference's M shards of a block each run the same routing,
+  1/M of it here).  Running every pair on ``meta`` takes minutes a layer
+  at full width, so the count runs the first b blocks' first m shards'
+  pairs of every layer for (b, m) = (1, 1), (2, 1), (1, 2), (2, 2), the
+  other pairs returning zeros (``_pairs_run``), and extrapolates: the
+  counts are bilinear in (b, m) — pair work b x m, each shard's gradient
+  taken back to its experts' (E, ...) leaf m times, the gates' and the
+  block's gradients gathered over the m shards b times.
+  An EP cell is counted with the rematerialized replay's early stop off
+  (``torch.utils.checkpoint.set_checkpoint_early_stop``): each replay then
+  runs its whole layer, as the reference's remat does, and visits every
+  pair, so the pairs line up; with early stop on, a replay ends where the
+  last pairs return zeros.  ``test_torch_dryrun.py`` holds the
+  extrapolation equal to running every pair on a small mesh, FLOPs and
+  bytes exactly, with remat and without.  Such a record's ``"moe"`` entry gives the layout
+  and one pair's forward FLOPs (the experts' ``3 x 2 x E_loc x C x D x
+  F``) beside the router's on a block.
 * **counted bytes** — a ``TorchDispatchMode`` that sums every aten op's input
   and output bytes (views excluded): the traffic of the eager, unfused
   step, global and per device (even split).
@@ -24,7 +49,9 @@ writes one JSON record holding:
   analytic formulas).
 * **collectives: null** — with no partitioner there are no collective bytes
   to count.  Real counts would come from DTensor placements over a fake
-  process group under ``CommDebugMode`` (ROADMAP).
+  process group under ``CommDebugMode`` (ROADMAP).  On an EP cell the note
+  names the first term to count: the ``psum`` of each MoE layer's (T_loc,
+  D) partials, ``2 x T_loc x D x bytes`` per device.
 
 Three cells need help to run on ``meta``: decode gets the shape's cache
 length as a Python int (``seq - 1``, the last slot of the cache); SASRec's
@@ -50,6 +77,8 @@ reads them.  The run exits 1 if any cell that is not skipped failed.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import itertools
 import json
 import math
 import pathlib
@@ -57,6 +86,7 @@ import time
 import traceback
 
 import torch
+from torch.utils import checkpoint
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import FlopCounterMode
@@ -67,7 +97,7 @@ from repro_torch.configs.lm_common import LM_SHAPES
 from repro_torch.kernels import topk_score
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.mesh import MeshShape
-from repro_torch.models import recsys
+from repro_torch.models import moe, recsys
 from repro_torch.optim import adamw
 
 ART = pathlib.Path(__file__).resolve().parents[3] / "artifacts" / \
@@ -90,6 +120,13 @@ BYTES_NOTE = ("every aten op's input and output bytes, views excluded: the "
 NO_COLLECTIVES = ("no partitioner: nothing partitions the step, so no "
                   "collective bytes are counted (ROADMAP: DTensor placements "
                   "over a fake process group under CommDebugMode)")
+EP_COLLECTIVES = ("; EP's psum of each MoE layer's (T_loc, D) partial "
+                  "outputs, 2 x T_loc x D x bytes per device a layer (the "
+                  "record's moe.psum_bytes_per_layer), is the first term to "
+                  "count (ROADMAP Queue 1 item 8)")
+EP_COUNT = ("the pairs of the first b blocks' first m shards counted for "
+            "(b, m) = (1, 1), (2, 1), (1, 2), (2, 2) and extrapolated "
+            "bilinearly to every pair; the router runs once a block")
 
 
 # ---------------------------------------------------------------------------
@@ -244,13 +281,116 @@ class Counts:
         self.bytes += nbytes
 
 
-def count_step(arch, cell: base.Cell, cfg) -> Counts:
-    """The cell's step run once on ``meta`` tensors at ``cfg``'s widths
-    under the counters (module docstring)."""
+def step_tokens(cell: base.Cell) -> int | None:
+    """Tokens a MoE layer of an LM cell's step sees (B x S, or B for
+    decode); None for other families."""
+    m = LM_SHAPES.get(cell.shape)
+    if m is None:
+        return None
+    return m["batch"] * (1 if cell.kind == "decode" else m["seq"])
+
+
+def ep_layout(arch, cell: base.Cell, cfg, mesh: MeshShape | None
+              ) -> dict | None:
+    """How the cell's MoE layers split over ``mesh`` where they take
+    expert parallelism (``moe.use_ep``), else None."""
+    if arch.family != "lm" or cfg.moe is None or mesh is None:
+        return None
+    T = step_tokens(cell)
+    if not moe.use_ep(T, cfg.moe, mesh):
+        return None
+    blocks, M = moe.token_blocks(mesh), mesh.shape["model"]
+    t_loc = T // blocks
+    return {"path": "ep", "tokens": T, "blocks": blocks, "shards": M,
+            "pairs": blocks * M, "tokens_per_block": t_loc,
+            "experts_per_shard": cfg.moe.n_experts // M,
+            "capacity": moe.ep_capacity(t_loc, cfg.moe, M),
+            "moe_layers": cfg.n_layers,
+            # the reference's psum of the (T_loc, D) partials: a ring
+            # all-reduce moves about twice the tensor a device
+            "psum_bytes_per_layer": 2 * t_loc * cfg.d_model * torch.empty(
+                (), dtype=cfg.dtype).element_size()}
+
+
+def ep_pair_flops(cfg, layout: dict) -> dict:
+    """One (block, shard) pair's forward FLOPs on ``meta``: the experts'
+    batched matmuls (``3 x 2 x E_loc x C x D x F``); and the router's on a
+    block, which each device of the reference runs."""
+    p = moe.init_moe(None, cfg.d_model, cfg.moe, cfg.dtype, device="meta")
+    x = base.meta((layout["tokens_per_block"], cfg.d_model), cfg.dtype)
+    with FlopCounterMode(display=False) as router:
+        gates, eidx, _, _ = moe._router(p, x, cfg.moe)
+    shard = moe._shard_params(p, cfg.moe, 0, layout["shards"])
+    with FlopCounterMode(display=False) as experts:
+        moe._ep_shard(shard, x, gates, eidx, 0, layout["capacity"])
+    return {"expert_flops_per_device_per_layer": experts.get_total_flops(),
+            "router_flops_per_device_per_layer": router.get_total_flops()}
+
+
+@contextlib.contextmanager
+def _pairs_run(blocks: int, shards: int, layout: dict):
+    """Inside, every EP layer runs only the pairs of its first ``blocks``
+    blocks' first ``shards`` shards; every other pair returns zeros.
+    ``moe_apply_ep`` visits a layer's pairs block by block, shard by shard,
+    each layer (and, with early stop off, each rematerialized replay) all
+    of them, so the call count places each call."""
+    real, calls = moe._ep_shard, itertools.count()
+
+    def pair(ps, xb, gates, eidx, m, C):
+        b, s = divmod(next(calls) % layout["pairs"], layout["shards"])
+        if b < blocks and s < shards:
+            return real(ps, xb, gates, eidx, m, C)
+        return torch.zeros_like(xb)
+    moe._ep_shard = pair
+    try:
+        yield
+    finally:
+        moe._ep_shard = real
+
+
+def count_step(arch, cell: base.Cell, cfg, mesh: MeshShape | None = None,
+               *, every_pair: bool = False) -> Counts:
+    """The cell's step run on ``meta`` tensors at ``cfg``'s widths under
+    the counters (module docstring), built with ``mesh`` for the LM
+    family.  Where its MoE layers take expert parallelism, the pairs of
+    one and two blocks and shards are counted and the rest extrapolated
+    (module docstring); ``every_pair`` runs every pair instead."""
+    layout = ep_layout(arch, cell, cfg, mesh)
+    if layout is None:
+        return _count_once(arch, cell, cfg, mesh)
+    with checkpoint.set_checkpoint_early_stop(False):
+        if every_pair or layout["pairs"] < 2:
+            return _count_once(arch, cell, cfg, mesh)
+        B, M = layout["blocks"], layout["shards"]
+        c = {}
+        for b, m in {(1, 1), (min(B, 2), 1), (1, min(M, 2)),
+                     (min(B, 2), min(M, 2))}:
+            with _pairs_run(b, m, layout):
+                got = _count_once(arch, cell, cfg, mesh)
+            c[b, m] = (got.flops, got.bytes)
+
+    def extrapolate(i: int) -> int:
+        # f(b, m) = f11 + alpha (m - 1) + delta (b - 1) + beta (b m - 1)
+        f11 = c[1, 1][i]
+        if B == 1:
+            return f11 + (M - 1) * (c[1, 2][i] - f11)
+        if M == 1:
+            return f11 + (B - 1) * (c[2, 1][i] - f11)
+        beta = c[2, 2][i] - c[2, 1][i] - c[1, 2][i] + f11
+        alpha = c[1, 2][i] - f11 - beta
+        delta = c[2, 1][i] - f11 - beta
+        return f11 + alpha * (M - 1) + delta * (B - 1) + beta * (B * M - 1)
+    counts = Counts()
+    counts.add(extrapolate(0), extrapolate(1))
+    return counts
+
+
+def _count_once(arch, cell: base.Cell, cfg, mesh) -> Counts:
     counts = Counts()
     params = arch.abstract_params(cfg)
     inputs = arch.abstract_inputs(cfg, cell.shape)
-    step = arch.make_step(cfg, cell.kind)
+    step = arch.make_step(cfg, cell.kind, mesh=mesh) \
+        if arch.family == "lm" else arch.make_step(cfg, cell.kind)
     if cell.kind == "train":
         counts.run(step, params, adamw.init_state(params), inputs["batch"])
     elif cell.kind == "prefill":
@@ -289,8 +429,8 @@ def lower_cell(arch, cell: base.Cell, mesh: MeshShape, mesh_name: str,
                cfg_override=None, counted: dict | None = None) -> dict:
     """One cell's record on ``mesh`` (module docstring); ``cfg_override``
     maps the shape's config to the one to account (e.g. the smoke widths).
-    ``counted`` keeps each cell's global counts for the next mesh: they do
-    not depend on it."""
+    ``counted`` keeps each cell's global counts for the next mesh where
+    they do not depend on it (an EP cell's do: its key holds the mesh)."""
     t0 = time.time()
     rules = base.make_rules(mesh.axis_names, cell)
     rec = {"cell": cell.cell_id, "kind": cell.kind, "mesh": mesh_name,
@@ -305,11 +445,13 @@ def lower_cell(arch, cell: base.Cell, mesh: MeshShape, mesh_name: str,
                    counts_note="data-dependent search loops: not counted")
     else:
         cfg = cell_config(arch, cell, cfg_override)
-        counts = None if counted is None else counted.get(cell.cell_id)
+        layout = ep_layout(arch, cell, cfg, mesh)
+        key = cell.cell_id if layout is None else (cell.cell_id, mesh.sizes)
+        counts = None if counted is None else counted.get(key)
         if counts is None:
-            counts = count_step(arch, cell, cfg)
+            counts = count_step(arch, cell, cfg, mesh)
         if counted is not None:
-            counted[cell.cell_id] = counts
+            counted[key] = counts
         rec["flops"] = {"global": counts.flops,
                         "per_device": counts.flops / mesh.size,
                         "note": FLOPS_NOTE, "per_device_note": EVEN_SPLIT}
@@ -319,8 +461,12 @@ def lower_cell(arch, cell: base.Cell, mesh: MeshShape, mesh_name: str,
         rec["model_flops"] = roofline.model_flops_for(cell.cell_id, cell.kind) \
             if cfg_override is None else None
         rec["flops_note"] = arch.flops_note(cfg)
+        if layout is not None:
+            rec["moe"] = {**layout, **ep_pair_flops(cfg, layout),
+                          "count": EP_COUNT}
     rec.update({"ok": True, "collectives": None,
-                "collectives_note": NO_COLLECTIVES,
+                "collectives_note": NO_COLLECTIVES + (
+                    EP_COLLECTIVES if "moe" in rec else ""),
                 "count_s": round(time.time() - t0, 2)})
     return rec
 

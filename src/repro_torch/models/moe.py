@@ -1,5 +1,5 @@
 """Mixture-of-Experts FFN: top-k token-choice routing, sort-based dispatch.
-The port's counterpart of ``repro.models.moe`` on one device.
+The port's counterpart of ``repro.models.moe``.
 
 The (T·K) routed copies are sorted by expert id (a stable sort), each copy's
 slot inside its expert comes from exclusive-cumsum arithmetic, and the copies
@@ -8,26 +8,51 @@ then two batched einsums.  top-k gates are renormalized over the selected
 experts (Qwen3-MoE's ``norm_topk_prob``); ``n_shared`` adds always-on shared
 experts (Llama-4), added after the combine.
 
+Two dispatch paths, chosen as the reference chooses (``moe_apply``):
+
+* **Expert parallelism** (``moe_apply_ep``, the reference's
+  ``_moe_ep_shardmap``) under a mesh with a ``model`` axis of M shards,
+  when the tokens split evenly into the mesh's ``pod`` x ``data`` blocks
+  and the experts into the M shards.  The mesh is a ``launch/mesh.MeshShape``
+  passed as an argument and the shards are a device list, not a process
+  group: each block of T_loc contiguous rows is routed once with the
+  replicated router (the reference's M shards each compute the same
+  routing), and each shard m in turn takes the block's gates and expert
+  ids, sends every copy that is not one of its E/M experts to a spill
+  bucket, dispatches the rest into an (E/M, C, D) buffer with ``C =
+  max(8, int(T_loc*K*cf/(E/M)/M) * 2)`` (twice the dense capacity of a
+  block), runs its experts and combines its copies; the M partial outputs
+  are summed on the block's device in shard order from zeros (the
+  reference's ``psum``), then the shared expert is added.  ``aux`` is the
+  mean over blocks (the reference's ``pmean``; its ``pmean`` over the
+  shards averages M equal values).  A shard runs where its experts lie:
+  unplaced, every shard's experts are views of the layer's (E, ...)
+  tensors on their device; ``place_experts`` puts each shard's slice on
+  its own device once, and is the one place where devices are chosen.
+* **The dense dispatch** (``moe_apply_dense``, the reference's
+  ``_moe_dense_dispatch``) otherwise: one buffer of every expert, ``C =
+  max(8, int(T*K*cf/E))``.
+
 Where the port must match the reference exactly:
 
 * **Ties.**  ``lax.top_k`` puts the lower expert first among equal
   probabilities; the port orders by (probability desc, expert asc) with a
   stable descending sort.
-* **Capacity.**  ``C = max(8, int(T*K*capacity_factor/E))``.  A copy whose
-  slot is at or past C is dropped from the scatter and reads back as 0
-  (the reference's ``mode="drop"`` / ``mode="fill"``): such copies write a
-  spill row past the buffer's E x C rows, which is never read, and are
-  masked to 0 when the experts' outputs are gathered back.  No step needs
-  a data-dependent shape, so the layer also runs on ``meta`` tensors.
+* **Capacity.**  A copy whose slot is at or past C is dropped from the
+  scatter and reads back as 0 (the reference's ``mode="drop"`` /
+  ``mode="fill"``): such copies, and on the EP path the copies of another
+  shard's experts, write a spill row past the buffer's rows, which is never
+  read, and are masked to 0 when the experts' outputs are gathered back.
+  No step needs a data-dependent shape, so the layer also runs on ``meta``
+  tensors.
 * **Combine order.**  The reference's ``out.at[tok].add(y)`` adds a token's K
   weighted copies to zeros one after another in the sorted order, i.e. by
   expert ascending.  The port adds them in that order too, left to right
   from zeros, in the activation dtype — no atomics (``index_add_`` on CUDA
   adds in no fixed order).
 
-Left out: the reference's expert-parallel ``_moe_ep_shardmap`` (a
-``shard_map`` over a mesh's ``model`` axis) waits for a multi-card slice, and
-its custom-VJP dispatch ops are plain forward gathers and scatters here.
+The reference's custom-VJP dispatch ops are plain forward gathers and
+scatters here, differentiated by autograd on both paths.
 """
 from __future__ import annotations
 
@@ -36,6 +61,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import layers as L
 
 
@@ -96,44 +122,178 @@ def _router(params, x, cfg: MoEConfig):
     return gates, eidx, probs, E * (me * ce).sum()
 
 
-def moe_apply(params: dict, x: torch.Tensor,
-              cfg: MoEConfig) -> tuple[torch.Tensor, torch.Tensor]:
+def use_ep(n_tokens: int, cfg: MoEConfig, mesh) -> bool:
+    """The reference's choice: expert parallelism under a mesh with a
+    ``model`` axis when the tokens split into the mesh's ``pod`` x ``data``
+    blocks and the experts into its ``model`` shards."""
+    return (mesh is not None and "model" in mesh.axis_names
+            and n_tokens % token_blocks(mesh) == 0
+            and cfg.n_experts % mesh.shape["model"] == 0)
+
+
+def token_blocks(mesh) -> int:
+    """The number of token blocks: the product of the mesh's ``pod`` and
+    ``data`` sizes (1 where it has neither)."""
+    shape = mesh.shape
+    return shape.get("pod", 1) * shape.get("data", 1)
+
+
+def ep_capacity(n_local_tokens: int, cfg: MoEConfig, n_shards: int) -> int:
+    """Slots per local expert on the EP path (the reference's rule)."""
+    e_loc = cfg.n_experts // n_shards
+    return max(8, int(n_local_tokens * cfg.top_k * cfg.capacity_factor
+                      / e_loc / n_shards) * 2)
+
+
+def moe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig,
+              mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (T, D) flattened tokens.  Returns (out (T, D), aux_loss ()).
 
-    The reference's single-device path (``_moe_dense_dispatch``)."""
-    T, D = x.shape
-    E, K = cfg.n_experts, cfg.top_k
-    C = capacity(T, cfg)
-    gates, eidx, _, aux = _router(params, x, cfg)
+    ``moe_apply_ep`` where ``use_ep(T, cfg, mesh)``, else the dense
+    dispatch."""
+    if use_ep(x.shape[0], cfg, mesh):
+        return moe_apply_ep(params, x, cfg, mesh)
+    return moe_apply_dense(params, x, cfg)
 
-    # ---- sort-based dispatch -------------------------------------------------
+
+def moe_apply_dense(params: dict, x: torch.Tensor,
+                    cfg: MoEConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's single-device path (``_moe_dense_dispatch``)."""
+    gates, eidx, _, aux = _router(params, x, cfg)
+    out = _dispatch_combine(params, x, eidx, gates, cfg.n_experts,
+                            capacity(x.shape[0], cfg))
+    if cfg.n_shared:
+        out = out + L.mlp_apply(params["shared"], x)
+    return out, aux
+
+
+def moe_apply_ep(params: dict, x: torch.Tensor, cfg: MoEConfig,
+                 mesh) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``_moe_ep_shardmap`` over ``mesh``'s ``model`` shards
+    (module docstring).  Shard m runs on the device of its experts: views of
+    ``params``' (E, ...) leaves, or the m-th entry of the leaves that
+    ``place_experts`` made tuples.  The router, the blocks, their partial
+    sums and the shared expert stay on ``x``'s device."""
+    T, D = x.shape
+    M = mesh.shape["model"]
+    if not use_ep(T, cfg, mesh):
+        raise ValueError(f"no expert parallelism for {T} tokens and "
+                         f"{cfg.n_experts} experts on mesh {mesh.shape}")
+    T_loc = T // token_blocks(mesh)
+    C = ep_capacity(T_loc, cfg, M)
+    shards = [_shard_params(params, cfg, m, M) for m in range(M)]
+    outs, auxes = [], []
+    for xb in x.split(T_loc):
+        gates, eidx, _, aux = _router(params, xb, cfg)
+        out = torch.zeros((T_loc, D), dtype=x.dtype, device=x.device)
+        for m, ps in enumerate(shards):
+            dev = ps["wo"].device
+            part = _ep_shard(ps, xb.to(dev), gates.to(dev), eidx.to(dev), m,
+                             C)
+            out = out + part.to(x.device)     # the psum, in shard order
+        if cfg.n_shared:
+            out = out + L.mlp_apply(params["shared"], xb)
+        outs.append(out)
+        auxes.append(aux)
+    return torch.cat(outs), torch.stack(auxes).mean()
+
+
+def place_experts(params: dict, n_shards: int, devices=None) -> dict:
+    """The layer's weights with each model shard's experts placed on its
+    device once: ``wi_gate`` / ``wi_up`` / ``wo`` become tuples of
+    ``n_shards`` tensors, shard m's holding its E/n_shards experts on
+    ``devices[m]`` (default: ``cuda:{m % device_count}``; raises without a
+    card); the router (replicated, one leaf) and the shared expert stay
+    where they are, with the activations.  Works on stacked leaves too
+    (experts on dim -3).  A slice that is already on its device stays a
+    view."""
+    if devices is None:
+        resolve_device("cuda")                      # raises: no card
+        devices = [f"cuda:{m % torch.cuda.device_count()}"
+                   for m in range(n_shards)]
+    if len(devices) != n_shards:
+        raise ValueError(f"{len(devices)} devices for {n_shards} shards")
+    E = params["router"].shape[-1]
+    if E % n_shards:
+        raise ValueError(f"{E} experts do not split into {n_shards} shards")
+    e_loc = E // n_shards
+    out = dict(params)
+    for k in ("wi_gate", "wi_up", "wo"):
+        t = params[k]
+        out[k] = tuple(t.narrow(t.dim() - 3, m * e_loc, e_loc).to(
+            resolve_device(d)) for m, d in enumerate(devices))
+    return out
+
+
+def _shard_params(params: dict, cfg: MoEConfig, m: int, M: int) -> dict:
+    """Shard m's experts: the m-th entry of a placed tuple, else a view of
+    its E/M experts."""
+    e_loc = cfg.n_experts // M
+    out = {}
+    for k in ("wi_gate", "wi_up", "wo"):
+        t = params[k]
+        if isinstance(t, tuple):
+            if len(t) != M:
+                raise ValueError(f"{k} is placed on {len(t)} shards, the "
+                                 f"mesh has {M}")
+            out[k] = t[m]
+        else:
+            out[k] = t.narrow(0, m * e_loc, e_loc)
+    return out
+
+
+def _ep_shard(ps: dict, xb: torch.Tensor, gates: torch.Tensor,
+              eidx: torch.Tensor, m: int, C: int) -> torch.Tensor:
+    """One (block, shard): keep the block's copies of shard m's experts (the
+    others go to the spill bucket E/M), dispatch, run the experts, combine.
+    Returns the partial output (T_loc, D)."""
+    e_loc = ps["wi_gate"].shape[0]
+    mine = torch.div(eidx, e_loc, rounding_mode="floor") == m
+    local = torch.where(mine, eidx - m * e_loc, e_loc)
+    return _dispatch_combine(ps, xb, local, gates, e_loc, C, spill=True)
+
+
+def _dispatch_combine(p: dict, x: torch.Tensor, eidx: torch.Tensor,
+                      gates: torch.Tensor, E: int, C: int,
+                      spill: bool = False) -> torch.Tensor:
+    """Sort-based dispatch of x's (T, K) copies into E experts' (E, C, D)
+    buffer, the expert FFN, the gather back and the combine, the float32
+    gates cast to x's dtype where they weight the copies (the reference's
+    EP path casts them first: the same values).  With ``spill``, ``eidx``
+    may hold E, the bucket of copies that are not this shard's: never
+    dispatched, they combine as 0."""
+    T, D = x.shape
+    K = eidx.shape[1]
     tok_ids = torch.arange(T, device=x.device).repeat_interleave(K)   # (T*K,)
     e_flat = eidx.reshape(-1)
-    g_flat = gates.reshape(-1)
     order = torch.argsort(e_flat, stable=True)
-    e_sorted, tok_sorted, g_sorted = e_flat[order], tok_ids[order], g_flat[order]
-    # each expert's first sorted copy (the exclusive cumsum of the experts'
+    e_sorted, tok_sorted = e_flat[order], tok_ids[order]
+    g_sorted = gates.reshape(-1)[order]
+    # each bucket's first sorted copy (the exclusive cumsum of the buckets'
     # counts), from ops that need no data-dependent shape, so the dispatch
     # also runs on ``meta`` tensors
     starts = torch.searchsorted(e_sorted, torch.arange(
-        E, dtype=e_sorted.dtype, device=x.device))
+        E + spill, dtype=e_sorted.dtype, device=x.device))
     slot = torch.arange(T * K, device=x.device) - starts[e_sorted]
-    keep = slot < C                       # past capacity: dropped, reads 0
-    # a kept copy's row of the (E*C, D) buffer; every dropped copy writes the
+    # past capacity or in the spill bucket: not dispatched, reads 0
+    keep = slot < C
+    if spill:
+        keep = keep & (e_sorted < E)
+    # a kept copy's row of the (E*C, D) buffer; every other copy writes the
     # spill row E*C, which is never read
     row = torch.where(keep, e_sorted * C + slot, E * C)
 
     buf = torch.zeros((E * C + 1, D), dtype=x.dtype, device=x.device)
     buf[row] = x[tok_sorted]
     buf = buf[:E * C].view(E, C, D)
-    h = F.silu(torch.einsum("ecd,edf->ecf", buf, params["wi_gate"]))
-    h = h * torch.einsum("ecd,edf->ecf", buf, params["wi_up"])
-    out_buf = torch.einsum("ecf,efd->ecd", h, params["wo"])
+    h = F.silu(torch.einsum("ecd,edf->ecf", buf, p["wi_gate"]))
+    h = h * torch.einsum("ecd,edf->ecf", buf, p["wi_up"])
+    out_buf = torch.einsum("ecf,efd->ecd", h, p["wo"])
 
     y = torch.where(keep[:, None],
                     out_buf.reshape(E * C, D)[row.clamp(max=E * C - 1)], 0)
     y = y * g_sorted[:, None].to(x.dtype)
-    # combine: each token's K copies, expert ascending, added left to right
+    # combine: each token's K copies, bucket ascending, added left to right
     # from zeros (the sorted order the reference's scatter-add visits)
     y_tk = torch.empty_like(y)
     y_tk[order] = y                                       # back to (t, k) order
@@ -143,7 +303,4 @@ def moe_apply(params: dict, x: torch.Tensor,
     for j in range(K):
         out = out + torch.gather(
             y_tk, 1, by_expert[:, j, None, None].expand(T, 1, D))[:, 0]
-
-    if cfg.n_shared:
-        out = out + L.mlp_apply(params["shared"], x)
-    return out, aux
+    return out

@@ -16,7 +16,9 @@ Caches keep the reference's layout too: one (k, v) pair per group position,
 each (n_groups, B, S_kv, KV, Dh).  ``decode_step`` writes each layer's new
 key and value into its cache *in place* and returns the same tensors.
 
-Entry points:
+Entry points (each takes ``mesh=`` for the MoE layers' expert
+parallelism, ``models/moe.py``; ``place_experts`` puts the shards on their
+devices once):
   loss_fn(params, batch)                         (train_* shapes, through
                                                  ``LMArch.make_step``'s
                                                  train_step and autograd)
@@ -216,6 +218,22 @@ def layers(params: dict, cfg: LMConfig) -> list[tuple[int, int, dict]]:
             for g in range(cfg.n_groups) for i in range(len(cfg.pattern))]
 
 
+def place_experts(params: dict, cfg: LMConfig, n_shards: int,
+                  devices=None) -> dict:
+    """``params`` with every MoE layer's experts split into ``n_shards``
+    model shards and each shard placed on its device once
+    (``moe.place_experts`` on the stacked leaves; default: shard m on
+    ``cuda:{m % device_count}``).  Pass the result, with a mesh whose
+    ``model`` axis has ``n_shards`` shards, to any entry point; a train
+    step on it updates each shard's experts where they lie and the one
+    router leaf once."""
+    if cfg.moe is None:
+        raise ValueError(f"{cfg.name} has no MoE layers")
+    return dict(params, blocks=[
+        dict(blk, moe=M.place_experts(blk["moe"], n_shards, devices))
+        for blk in params["blocks"]])
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
@@ -235,7 +253,7 @@ def _logits(params: dict, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
 
 
 def _block_apply(p: dict, x: torch.Tensor, cfg: LMConfig, pattern: str,
-                 use_rope: bool, kv_cache=None, cache_len=None):
+                 use_rope: bool, kv_cache=None, cache_len=None, mesh=None):
     pat_id = A.PATTERNS.index(pattern)
     h = L.rms_norm(x, p["norm1"])
     attn_out, new_kv = A.attend(p["attn"], h, cfg.attn_cfg(), pat_id,
@@ -248,7 +266,7 @@ def _block_apply(p: dict, x: torch.Tensor, cfg: LMConfig, pattern: str,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.moe:
         B, S, D = h.shape
-        out, aux = M.moe_apply(p["moe"], h.reshape(B * S, D), cfg.moe)
+        out, aux = M.moe_apply(p["moe"], h.reshape(B * S, D), cfg.moe, mesh)
         out = out.reshape(B, S, D)
     else:
         out = L.mlp_apply(p["mlp"], h)
@@ -258,9 +276,12 @@ def _block_apply(p: dict, x: torch.Tensor, cfg: LMConfig, pattern: str,
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig,
-            collect_cache: bool = False):
+            collect_cache: bool = False, *, mesh=None):
     """tokens (B, S) -> (logits (B, S, V) float32, aux ()) [+ caches: one
-    (k, v) pair per group position, each (n_groups, B, S, KV, Dh)]."""
+    (k, v) pair per group position, each (n_groups, B, S, KV, Dh)].
+    ``mesh`` (a ``launch/mesh.MeshShape``) goes to every MoE layer
+    (``moe.moe_apply``: expert parallelism where the reference takes it);
+    without a mesh the MoE layers take the dense dispatch."""
     x = _embed(params, tokens, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = None
@@ -274,10 +295,11 @@ def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig,
     for g, i, p in layers(params, cfg):
         if remat:
             x, a = checkpoint(_layer, p, x, cfg, cfg.pattern[i],
-                              cfg.use_rope_pattern[i], use_reentrant=False)
+                              cfg.use_rope_pattern[i], mesh,
+                              use_reentrant=False)
         else:
             x, (k, v), a = _block_apply(p, x, cfg, cfg.pattern[i],
-                                        cfg.use_rope_pattern[i])
+                                        cfg.use_rope_pattern[i], mesh=mesh)
             if collect_cache:
                 caches[i][0][g] = k
                 caches[i][1][g] = v
@@ -287,18 +309,18 @@ def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig,
 
 
 def _layer(p: dict, x: torch.Tensor, cfg: LMConfig, pattern: str,
-           use_rope: bool):
+           use_rope: bool, mesh=None):
     """One layer's (output, aux) — what a rematerialized layer keeps."""
-    x, _, aux = _block_apply(p, x, cfg, pattern, use_rope)
+    x, _, aux = _block_apply(p, x, cfg, pattern, use_rope, mesh=mesh)
     return x, aux
 
 
-def loss_fn(params: dict, batch: dict, cfg: LMConfig):
+def loss_fn(params: dict, batch: dict, cfg: LMConfig, *, mesh=None):
     """The reference's training loss: (loss, {"nll", "aux"}) — the mean
     token NLL plus ``aux_loss_weight`` x the MoE layers' summed balancing
     loss.  Differentiable; ``LMArch.make_step(cfg, "train")`` takes its
     gradient."""
-    logits, aux = forward(params, batch["tokens"], cfg)
+    logits, aux = forward(params, batch["tokens"], cfg, mesh=mesh)
     nll = L.cross_entropy(logits, batch["labels"])
     return nll + cfg.aux_loss_weight * aux, {"nll": nll, "aux": aux}
 
@@ -330,22 +352,27 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, *,
 
 
 def decode_step(params: dict, caches: list, tokens: torch.Tensor,
-                cache_len, cfg: LMConfig):
+                cache_len, cfg: LMConfig, *, mesh=None):
     """One decode step: tokens (B,) at position ``cache_len`` (an int or a
-    0-d tensor) -> (logits (B, V) float32, caches updated in place)."""
+    0-d tensor) -> (logits (B, V) float32, caches updated in place).  The
+    MoE layers see B tokens: under ``mesh`` they take expert parallelism
+    where B splits into the mesh's token blocks, else the dense dispatch
+    (the reference's rule)."""
     x = _embed(params, tokens[:, None], cfg)
     cache_len = int(cache_len)
     for g, i, p in layers(params, cfg):
         kv = (caches[i][0][g], caches[i][1][g])
         x, _, _ = _block_apply(p, x, cfg, cfg.pattern[i],
                                cfg.use_rope_pattern[i], kv_cache=kv,
-                               cache_len=cache_len)
+                               cache_len=cache_len, mesh=mesh)
     return _logits(params, x, cfg)[:, 0], caches
 
 
-def prefill(params: dict, tokens: torch.Tensor, cfg: LMConfig):
+def prefill(params: dict, tokens: torch.Tensor, cfg: LMConfig, *,
+            mesh=None):
     """Prefill: the full forward, returning logits and caches S long at every
     layer (the reference has no function that places them into
     ``init_cache``'s rings, and neither has the port)."""
-    logits, _, caches = forward(params, tokens, cfg, collect_cache=True)
+    logits, _, caches = forward(params, tokens, cfg, collect_cache=True,
+                                mesh=mesh)
     return logits, caches

@@ -80,9 +80,10 @@ def schedule(cfg: AdamWConfig, step) -> torch.Tensor:
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of each leaf's float32 sum of squares (a float32 0-d
-    tensor)."""
+    tensor on the first leaf's device: leaves may lie on several)."""
     sums = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(sums)))
+    return torch.sqrt(torch.sum(torch.stack([s.to(sums[0].device)
+                                             for s in sums])))
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -126,12 +127,13 @@ def apply_updates(params, state: AdamWState, grads, cfg: AdamWConfig):
         bc1 = 1 - torch.pow(cfg.b1, t)
         bc2 = 1 - torch.pow(cfg.b2, t)
         for p, m, v, g in zip(flat_p, flat_m, flat_v, flat_g):
-            g = g.float() * scale
+            d = p.device                 # leaves may lie on several devices
+            g = g.float() * scale.to(d)
             m.mul_(cfg.b1).add_(g * (1 - cfg.b1))
             v.mul_(cfg.b2).add_(g.square_().mul_(1 - cfg.b2))
             del g
-            delta = (m / bc1).div_((v / bc2).sqrt_().add_(cfg.eps))
-            delta.add_(p.float() * cfg.weight_decay).mul_(lr)
+            delta = (m / bc1.to(d)).div_((v / bc2.to(d)).sqrt_().add_(cfg.eps))
+            delta.add_(p.float() * cfg.weight_decay).mul_(lr.to(d))
             p.copy_(p.float() - delta)
     return params, AdamWState(step=step, m=state.m, v=state.v), \
         {"grad_norm": gnorm, "lr": lr}

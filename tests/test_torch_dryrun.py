@@ -20,6 +20,13 @@
   computes the full S x S square (twice the causal count the model takes),
   and the embedding lookup (V x D of N) is a gather the counter does not
   count.  The count is held to that closed form exactly.
+* MoE cells through expert parallelism: for every llama4-scout and
+  qwen3-moe cell on both production meshes, one (block, shard) pair's
+  expert FLOPs equal ``3 x 2 x E_loc x C x D x F`` with C from the EP rule
+  (long_500k's one token takes the dense dispatch); counting the pairs of
+  one and two blocks and shards and extrapolating equals running every
+  pair of a (2, 4) mesh, FLOPs and bytes; cells without EP keep their
+  earlier counts.
 * The MoE dispatch runs on ``meta``; tabular retrieval counted as one chunk
   times the chunks equals the whole loop's FLOPs, and its bytes within 2%
   (the whole loop also copies the last chunk's padding rows).
@@ -364,3 +371,98 @@ def test_dryrun_cli_writes_records_and_the_roofline_reads_them(tmp_path):
     assert wt.compute_s is None and wt.memory_s is None and wt.dominant == "-"
     table = roofline.markdown_table(rows)
     assert "| qwen3-1.7b:long_500k | skip |" in table and "H100" in table
+
+
+# ---------------------------------------------------------------------------
+# MoE cells through expert parallelism
+# ---------------------------------------------------------------------------
+
+MOE_ARCHS = ("qwen3-moe-235b-a22b", "llama4-scout-17b-a16e")
+MOE_CELLS = [(c.arch, c.shape) for a in MOE_ARCHS
+             for c in registry.get(a).cells() if not c.skip]
+# the parent's global counts (flops, bytes) of cells that take no EP: dense LMs
+# and a MoE cell whose one token does not split into the mesh's blocks
+DENSE_RECORDS = {("qwen3-1.7b", "decode_32k"): (1402508148736, 2479578187836),
+                 ("gemma2-9b", "long_500k"): (200280113152, 122190426928),
+                 ("llama4-scout-17b-a16e", "long_500k"): (1701273272320,
+                                                          253471591480)}
+
+
+@pytest.mark.parametrize("mesh_name", list(MESHES))
+@pytest.mark.parametrize("name,shape", MOE_CELLS)
+def test_moe_cells_count_expert_flops_per_device_through_ep(name, shape,
+                                                             mesh_name):
+    """Per device and MoE layer, the experts' forward FLOPs are
+    ``3 x 2 x E_loc x C x D x F`` with C from the EP rule at T_loc =
+    tokens / (pod x data); a cell whose tokens do not split takes the
+    dense dispatch."""
+    arch = registry.get(name)
+    cell = next(c for c in arch.cells() if c.shape == shape)
+    cfg, mesh = arch.config_for(shape), MESHES[mesh_name]
+    m = LM_SHAPES[shape]
+    T = m["batch"] * (1 if cell.kind == "decode" else m["seq"])
+    blocks = mesh.shape["data"] * mesh.shape.get("pod", 1)
+    layout = dryrun.ep_layout(arch, cell, cfg, mesh)
+    if T % blocks:
+        assert layout is None and shape == "long_500k"
+        return
+    M = mesh.shape["model"]
+    E_loc, T_loc = cfg.moe.n_experts // M, T // blocks
+    C = max(8, int(T_loc * cfg.moe.top_k * cfg.moe.capacity_factor
+                   / E_loc / M) * 2)
+    assert (layout["tokens_per_block"], layout["experts_per_shard"],
+            layout["capacity"], layout["pairs"]) == (T_loc, E_loc, C,
+                                                     mesh.size)
+    flops = dryrun.ep_pair_flops(cfg, layout)
+    assert flops["expert_flops_per_device_per_layer"] == \
+        3 * 2 * E_loc * C * cfg.d_model * cfg.moe.d_ff
+    # the replicated router: 2 x T_loc x D x E on every pair
+    assert flops["router_flops_per_device_per_layer"] == \
+        2 * T_loc * cfg.d_model * cfg.moe.n_experts
+    assert layout["psum_bytes_per_layer"] == 2 * T_loc * cfg.d_model * 2
+
+
+@pytest.mark.parametrize("name,shape,remat", [
+    ("qwen3-moe-235b-a22b", "train_4k", False),
+    ("qwen3-moe-235b-a22b", "train_4k", True),
+    ("qwen3-moe-235b-a22b", "prefill_32k", False),
+    ("qwen3-moe-235b-a22b", "decode_32k", False),
+    ("llama4-scout-17b-a16e", "train_4k", False)])
+def test_extrapolated_pairs_equal_every_pair_on_a_small_mesh(name, shape,
+                                                             remat):
+    """Counting the pairs of one and two blocks and shards and
+    extrapolating equals running every pair of a (2, 4) mesh, FLOPs and
+    bytes exactly, with remat (over two layers: each replay visits every
+    pair) and without.  The record names the layout and the psum term."""
+    arch = registry.get(name)
+    cell = next(c for c in arch.cells() if c.shape == shape)
+    smoke = arch.config(smoke=True)
+    cfg = dataclasses.replace(smoke, remat=remat,
+                              n_layers=len(smoke.pattern) * (1 + remat))
+    mesh = mesh_lib.MeshShape(("data", "model"), (2, 4))
+    some = dryrun.count_step(arch, cell, cfg, mesh)
+    every = dryrun.count_step(arch, cell, cfg, mesh, every_pair=True)
+    assert (some.flops, some.bytes) == (every.flops, every.bytes)
+    assert every.flops > 0
+    dense = dryrun.count_step(arch, cell, cfg)
+    assert every.flops != dense.flops
+    rec = dryrun.lower_cell(arch, cell, mesh, "small",
+                            cfg_override=lambda _: cfg)
+    assert rec["flops"]["global"] == some.flops
+    assert rec["moe"]["pairs"] == 8 and rec["moe"]["shards"] == 4
+    assert rec["collectives"] is None and "psum" in rec["collectives_note"]
+
+
+@pytest.mark.parametrize("name,shape", list(DENSE_RECORDS))
+def test_cells_without_ep_keep_their_records(name, shape):
+    arch = registry.get(name)
+    cell = next(c for c in arch.cells() if c.shape == shape)
+    counted = {}
+    for mesh_name, mesh in MESHES.items():
+        rec = dryrun.lower_cell(arch, cell, mesh, mesh_name, counted=counted)
+        flops, nbytes = DENSE_RECORDS[(name, shape)]
+        assert (rec["flops"]["global"], rec["bytes"]["global"]) == \
+            (flops, nbytes)
+        assert rec["flops"]["per_device"] == flops / mesh.size
+        assert "moe" not in rec
+        assert rec["collectives_note"] == dryrun.NO_COLLECTIVES
