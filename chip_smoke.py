@@ -278,6 +278,19 @@ nothing falls back to the CPU):
    ms a step, the device's busy share and top kernels of one prefill,
    ``max_memory_allocated``, beside the card's name and power limit.  Each
    model is freed before the next.
+21. The two search examples and the dry run's collectives.  (a)
+   ``examples/torch_search_engine.py`` and
+   ``examples/torch_distributed_retrieval.py`` (8 shards on ``cuda:0``):
+   ``run("cuda")`` against ``run("cpu")``, every answer leaf bitwise, at a
+   cut size (``EXAMPLE_SEARCH``, ``EXAMPLE_SHARDED``); the launches of the
+   card's runs, counts reset just before (K1, ``drb_walk``, ``drb_or``,
+   ``wtbc_locate`` and ``wtbc_decode`` each at least once).  (b) the dry
+   run's ``wtbc`` cells on a one-axis mesh of phase 19's 4 shards at each
+   method's phase-19 batch and k: the all-gather bytes equal what
+   ``merge_topk`` took from the shards there (the numel x element size of
+   the gathered documents and scores, recorded by phase 19).  (c) the
+   ``wtbc`` and EP collective rows on both production meshes, beside the
+   card's name and power limit (NVLink's rate is a data-sheet figure).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1264,6 +1277,7 @@ def main(argv=None) -> int:
                       None if args.docs == QUARTER_DOCS else args.docs,
                       kernels[0]["ms"], tr["qwen3-1.7b"]["placed"])
     moe_run = timed_phase("20", moe_phase)
+    ex = timed_phase("21", collectives_phase, dep)
     log("seconds per phase: " + json.dumps(
         {k_: round(v, 1) for k_, v in phase_s.items()}))
     for k_ in kernels:
@@ -1282,6 +1296,7 @@ def main(argv=None) -> int:
         k_["train_launches"] = tr["launches"][k_["name"]]
         k_["deploy_launches"] = dep["launches"][k_["name"]]
         k_["moe_launches"] = moe_run["launches"][k_["name"]]
+        k_["examples_launches"] = ex["launches"][k_["name"]]
     log(json.dumps({"serving": serving}))
     log(json.dumps({"sharded": sharded}))
     log(json.dumps({"quickstart": quick}))
@@ -1290,6 +1305,7 @@ def main(argv=None) -> int:
     log(json.dumps({"train": tr}))
     log(json.dumps({"deploy": dep}))
     log(json.dumps({"moe": moe_run}))
+    log(json.dumps({"collectives_examples": ex}))
     log(json.dumps({"launches": counts,
                     "kernels": [k["name"] for k in kernels]}))
     log(json.dumps({"kernels": kernels}))
@@ -4645,6 +4661,18 @@ def deploy_phase(device: str = "cuda", n_docs: int | None = None,
     ends = np.cumsum([len(t) for t in cp.doc_tokens])
     tally = Tally()
     methods = {}
+    # the bytes each method's merge takes from the shards (its first call),
+    # held against the dry run's all-gathers in phase 21
+    gathered, gather = {}, distributed.gather_candidates
+
+    def gather_spy(results, bases, device_):
+        got = gather(results, bases, device_)
+        gathered.setdefault(method, {
+            "B": int(got[0].shape[0]), "k": k,
+            "dtypes": [str(t.dtype) for t in got],
+            "bytes": sum(t.numel() * t.element_size() for t in got)})
+        return got
+    distributed.gather_candidates = gather_spy
     for shape, method in wtbc_paper.SHAPES.items():
         q = batches[method]
         w, m = encode(q)
@@ -4700,7 +4728,9 @@ def deploy_phase(device: str = "cuda", n_docs: int | None = None,
             f"{row['pops']}; device busy {busy} ms, idle share "
             f"{row['idle_share']}; checks {check_s:.1f} s")
     del tokens
-    out.update(methods=methods, drb_or_rows_over_cap=over)
+    distributed.gather_candidates = gather
+    out.update(methods=methods, drb_or_rows_over_cap=over,
+               gathered=gathered)
     part_done("methods")
 
     # ---- 19a. kernels against their plain versions at block 32,768 --------
@@ -5311,6 +5341,144 @@ def moe_phase(device: str = "cuda", small: bool = False) -> dict:
     out["launches"] = counts
     out["seconds"] = secs
     log("phase 20 seconds per part: " + json.dumps(secs))
+    return out
+
+
+#: phase 21's cut of the examples: sizes whose CPU run (the reference
+#: answers) stays within the phase's time
+EXAMPLE_SEARCH = dict(docs=1000, vocab=20000, batch=16, k=10)
+EXAMPLE_SHARDED = dict(docs=1000, n_queries=16)
+
+
+def _example(name: str):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, Path(__file__).resolve().parent / "examples"
+        / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _answers_equal(a: dict, b: dict) -> list[str]:
+    """The leaves where two examples' answers ({workload: {leaf: array}})
+    differ."""
+    return [f"{w}/{n}" for w in a for n in a[w]
+            if not np.array_equal(a[w][n], b[w][n])] + \
+        [w for w in set(a) ^ set(b)]
+
+
+def collectives_phase(dep: dict | None, device: str = "cuda") -> dict:
+    """Phase 21: (a) both search examples' ``run`` on ``device`` against
+    ``run("cpu")``, every answer leaf bitwise, with the launches of the
+    card's runs (counts reset just before, read just after); (b) the dry
+    run's ``wtbc`` count on a one-axis mesh of phase 19's 4 shards at each
+    method's phase-19 batch and k: its all-gather bytes against the bytes
+    ``merge_topk`` took from the shards there (``dep["gathered"]``: the
+    numel x element size of the gathered documents and scores); (c) the
+    ``wtbc`` and EP collective rows of the dry run on both production
+    meshes (NVLink 4's 450e9 B/s one way: a data-sheet figure)."""
+    import dataclasses
+    from repro_torch.configs import registry, wtbc_paper
+    from repro_torch.kernels import backend
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    out, secs, t0 = {}, {}, time.perf_counter()
+    se = _example("torch_search_engine")
+    dr = _example("torch_distributed_retrieval")
+    log("reduced: " + json.dumps({
+        "phase 21 examples": f"torch_search_engine at {EXAMPLE_SEARCH}, "
+        f"torch_distributed_retrieval at {EXAMPLE_SHARDED} (8 shards)",
+        "why": "the CPU answers they are held against come from the plain "
+        "heap core on the host within the phase's time"}))
+    cpu_se = se.run("cpu", warm=False, **EXAMPLE_SEARCH)
+    cpu_dr = dr.run("cpu", warm=False, **EXAMPLE_SHARDED)
+    secs["cpu"] = round(time.perf_counter() - t0, 1)
+    t0 = time.perf_counter()
+    backend.reset_launch_counts()
+    dev_se = se.run(device, **EXAMPLE_SEARCH)
+    dev_dr = dr.run(device, **EXAMPLE_SHARDED)
+    out["launches"] = counts = backend.launch_counts()
+    secs[device] = round(time.perf_counter() - t0, 1)
+    for name, a, b in (("torch_search_engine", dev_se["answers"],
+                        cpu_se["answers"]),
+                       ("torch_distributed_retrieval", dev_dr["sharded"],
+                        cpu_dr["sharded"]),
+                       ("torch_distributed_retrieval single",
+                        dev_dr["single"], cpu_dr["single"])):
+        bad = _answers_equal(a, b)
+        check(not bad, f"{name} on {device} differs from the CPU: {bad}")
+    found = {w: int(v["n_found"].sum()) for w, v in dev_se["answers"].items()}
+    log(f"examples on {device} == on the CPU, every leaf bitwise; hits per "
+        f"workload {found}; ms per query {dev_se['ms_per_query']} and "
+        f"sharded {dev_dr['ms_per_query']}; launches {counts}")
+    if device == "cuda":
+        for kname in ("wavelet_count", "drb_walk", "drb_or", "wtbc_locate",
+                      "wtbc_decode"):
+            check(counts[kname] > 0, f"the examples launched no {kname}")
+    out.update(examples_found=found, ms_per_query=dev_se["ms_per_query"],
+               sharded_ms_per_query=dev_dr["ms_per_query"])
+
+    # (b) the deployment's gathers: the dry run against the card
+    t0 = time.perf_counter()
+    arch = wtbc_paper.ARCH
+    mesh4 = mesh_lib.MeshShape(("data",), (DEPLOY_SHARDS,))
+    rows = []
+    for shape, method in wtbc_paper.SHAPES.items():
+        got = (dep or {}).get("gathered", {}).get(method)
+        check(got is not None, f"phase 19 recorded no merge for {method}")
+        cell = next(c for c in arch.cells() if c.shape == shape)
+        rec = dryrun.lower_cell(arch, cell, mesh4, "phase19", cfg_override=(
+            lambda c, B=got["B"]: dataclasses.replace(c, query_batch=B)))
+        ag = rec["collectives"]["all-gather"]
+        check(ag["bytes"] == got["bytes"] and ag["count"] == 2,
+              f"{method}: the dry run's all-gathers {ag} differ from the "
+              f"{got['bytes']} bytes the merge took from the shards")
+        rows.append({"method": method, "B": got["B"], "k": got["k"],
+                     "all_gather": ag, "gathered_bytes": got["bytes"],
+                     "all_reduce": rec["collectives"]["all-reduce"]})
+        log(f"wtbc {method} on 1 x {DEPLOY_SHARDS} (B = {got['B']}, k = "
+            f"{got['k']}): dry-run all-gathers {ag} == the merge's gathered "
+            f"{got['bytes']} bytes ({got['dtypes']}); all-reduces "
+            f"{rec['collectives']['all-reduce']}")
+    out["wtbc_phase19"] = rows
+
+    # (c) the wtbc and EP rows on the production meshes
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip() if device == "cuda" \
+        else "not measured (CPU rehearsal)"
+    prod = []
+    for mesh_name in ("single", "multi"):
+        mesh = mesh_lib.make_production_mesh(multi_pod=mesh_name == "multi")
+        for cell in arch.cells():
+            ops = dryrun.wtbc_collectives(arch, cell, arch.config(), mesh)
+            r = dryrun.collective_record(ops)
+            prod.append({"cell": cell.cell_id, "mesh": mesh_name,
+                         "collectives": r,
+                         "collective_s": r["total_bytes"] / mesh_lib.LINK_BW})
+        for name in ("qwen3-moe-235b-a22b", "llama4-scout-17b-a16e"):
+            a = registry.get(name)
+            for cell in a.cells():
+                if cell.skip:
+                    continue
+                cfg = a.config_for(cell.shape)
+                layout = dryrun.ep_layout(a, cell, cfg, mesh)
+                if layout is None:
+                    prod.append({"cell": cell.cell_id, "mesh": mesh_name,
+                                 "ep": None})
+                    continue
+                psum = dryrun.ep_psum(cfg, layout)
+                prod.append({"cell": cell.cell_id, "mesh": mesh_name,
+                             "ep_psum": psum,
+                             "psum_s": psum["bytes"] / mesh_lib.LINK_BW})
+    for r in prod:
+        log("collective row (NVLink 450e9 B/s one way, data sheet; "
+            f"{smi}): " + json.dumps(r))
+    out["production_rows"] = prod
+    secs["dry_run"] = round(time.perf_counter() - t0, 1)
+    out["seconds"] = secs
+    log("phase 21 seconds per part: " + json.dumps(secs))
     return out
 
 

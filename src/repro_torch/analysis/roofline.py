@@ -2,18 +2,25 @@
 WTBC query-path memory roofline.  The port's counterpart of
 ``repro.analysis.roofline``.
 
-**Cells** (``python -m repro_torch.analysis.roofline --mesh single``): two
+**Cells** (``python -m repro_torch.analysis.roofline --mesh single``): three
 terms per (arch x shape) from ``launch/dryrun.py``'s records, with the H100
-SXM's data-sheet constants of ``launch/mesh.py``:
+SXM's data-sheet constants of ``launch/mesh.py`` (figures from NVIDIA's data
+sheet, not measurements):
 
   compute_s    = max(model FLOPs, counted FLOPs) per device / 989e12  (bf16)
   memory_s     = counted bytes per device / 3.35e12                    (HBM3)
-  collective_s = —  (the dry run counts no collective bytes: no partitioner)
+  collective_s = collective bytes per device / 450e9   (NVLink 4, one way)
 
-so ``dominant`` chooses between compute and memory only.  The counted
-numbers are the eager step's on ``meta`` tensors, split evenly over the
-mesh's devices; the counter sees matmul-like ops only, and the bytes are
-every unfused op's inputs and outputs.  MODEL_FLOPS (the useful-work
+and ``dominant`` is the largest of them.  The counted FLOPs and bytes are
+the eager step's on ``meta`` tensors, split evenly over the mesh's devices;
+the counter sees matmul-like ops only, and the bytes are every unfused op's
+inputs and outputs.  The collective bytes are the record's ``total_bytes``
+(an all-reduce counted twice); where the record has none (an op without a
+``DTensor`` rule) the term is —, and ``dominant``, the step time and the
+roofline fraction weigh the terms the record has.  A ``DTensor`` count
+depends on the torch release (its sharding rules), which the table's
+"collectives by" column prints.  An axis of 16 crosses hosts, so for it
+the NVLink rate makes ``collective_s`` a floor.  MODEL_FLOPS (the useful-work
 numerator) is analytic and the reference's exactly: 6·N·T for dense-LM
 training (6·N_active·T for MoE) plus exact attention-window terms, 2·N·T
 for inference; per-tower closed forms for recsys; per-layer closed forms
@@ -37,7 +44,7 @@ import math
 import pathlib
 
 from repro_torch import obs
-from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16
+from repro_torch.launch.mesh import HBM_BW, LINK_BW, PEAK_FLOPS_BF16
 
 ART = pathlib.Path(__file__).resolve().parents[3] / "artifacts" / \
     "dryrun_torch"
@@ -153,30 +160,42 @@ class CellRoofline:
     counted_bytes: float | None   # per device, even split; unfused op I/O
     compute_s: float | None       # max(model, counted) FLOPs / device / peak
     memory_s: float | None
+    collective_s: float | None    # collective bytes / device / NVLink rate
     dominant: str
     model_flops_per_chip: float | None
     arg_gb: float | None          # exact argument bytes per device / 2**30
     skipped: str | None = None
+    # who counted the collectives: the torch release of a DTensor count,
+    # "merge" for the wtbc merge's own list, "no rule: <op>" where DTensor
+    # stopped (collective_s is then None)
+    collectives_by: str | None = None
+
+    def terms(self) -> list[float]:
+        """The terms the record has."""
+        return [t for t in (self.compute_s, self.memory_s, self.collective_s)
+                if t is not None]
 
     def step_time(self) -> float | None:
-        """No-overlap upper bound (the two terms serialized)."""
+        """No-overlap upper bound: the terms the record has, serialized
+        (None without compute_s and memory_s)."""
         if self.compute_s is None or self.memory_s is None:
             return None
-        return self.compute_s + self.memory_s
+        return sum(self.terms())
 
     def roofline_fraction(self) -> float | None:
-        """Useful-compute share of the binding resource: compute_s /
-        max(compute_s, memory_s); 1.0 = bound by useful work."""
+        """Useful-compute share of the binding resource: compute_s over the
+        largest term the record has; 1.0 = bound by useful work."""
         if self.compute_s is None or self.memory_s is None:
             return None
-        return self.compute_s / max(self.compute_s, self.memory_s, 1e-30)
+        return self.compute_s / max(*self.terms(), 1e-30)
 
 
 def reduce_cell(rec: dict, model_flops_total: float | None) -> CellRoofline:
     if rec.get("skipped"):
         return CellRoofline(cell=rec["cell"], kind="-", chips=0,
                             counted_flops=None, counted_bytes=None,
-                            compute_s=None, memory_s=None, dominant="-",
+                            compute_s=None, memory_s=None, collective_s=None,
+                            dominant="-",
                             model_flops_per_chip=None, arg_gb=None,
                             skipped=rec["skipped"])
     chips = math.prod(rec["mesh_shape"].values())
@@ -186,15 +205,25 @@ def reduce_cell(rec: dict, model_flops_total: float | None) -> CellRoofline:
     useful = [x for x in (mf, flops) if x is not None]
     compute_s = max(useful) / PEAK_FLOPS_BF16 if useful else None
     memory_s = None if hbm is None else hbm / HBM_BW
-    terms = [(n, t) for n, t in (("compute", compute_s), ("memory", memory_s))
+    coll = (rec.get("collectives") or {}).get("total_bytes")
+    collective_s = None if coll is None else coll / LINK_BW
+    terms = [(n, t) for n, t in (("compute", compute_s), ("memory", memory_s),
+                                 ("collective", collective_s))
              if t is not None]
     dom = max(terms, key=lambda kv: kv[1])[0] if terms else "-"
     args = rec["argument_bytes"]["total"]
+    if rec.get("collectives_stopped_at"):
+        by = f"no rule: {rec['collectives_stopped_at']}"
+    elif rec.get("collectives_torch"):
+        by = "torch " + rec["collectives_torch"]
+    else:
+        by = None if rec.get("collectives") is None else "merge"
     return CellRoofline(
         cell=rec["cell"], kind=rec.get("kind", "?"), chips=chips,
         counted_flops=flops, counted_bytes=hbm, compute_s=compute_s,
-        memory_s=memory_s, dominant=dom, model_flops_per_chip=mf,
-        arg_gb=args / 2 ** 30)
+        memory_s=memory_s, collective_s=collective_s, dominant=dom,
+        model_flops_per_chip=mf,
+        arg_gb=args / 2 ** 30, collectives_by=by)
 
 
 def load_all(mesh_name: str = "single",
@@ -215,24 +244,28 @@ def _num(x: float | None, fmt: str = ".2e") -> str:
 
 
 def markdown_table(rows: list[CellRoofline]) -> str:
-    hdr = ("| cell | kind | compute_s | memory_s | collective_s | dominant | "
-           "roofline frac | args GB / device |\n"
-           "|---|---|---|---|---|---|---|---|\n")
+    hdr = ("| cell | kind | compute_s | memory_s | collective_s | "
+           "collectives by | dominant | roofline frac | args GB / device |\n"
+           "|---|---|---|---|---|---|---|---|---|\n")
     lines = []
     for r in rows:
         if r.skipped:
-            lines.append(f"| {r.cell} | skip | - | - | - | - | - | - |")
+            lines.append(f"| {r.cell} | skip | - | - | - | - | - | - | - |")
             continue
         lines.append(
             f"| {r.cell} | {r.kind} | {_num(r.compute_s)} | "
-            f"{_num(r.memory_s)} | — | **{r.dominant}** | "
+            f"{_num(r.memory_s)} | {_num(r.collective_s)} | "
+            f"{r.collectives_by or '—'} | **{r.dominant}** | "
             f"{_num(r.roofline_fraction(), '.3f')} | {_num(r.arg_gb, '.3f')} |")
-    note = ("\n\nH100 SXM data-sheet constants (989e12 bf16 FLOP/s, 3.35e12 "
-            "B/s HBM3). collective_s is — on every row: the dry run has no "
-            "partitioner and counts no collective bytes, so `dominant` "
-            "chooses between compute and memory only; a — in compute_s or "
-            "memory_s is a count the cell does not have (wtbc: "
-            "data-dependent loops).")
+    note = ("\n\nH100 SXM data-sheet constants, not measurements (989e12 "
+            "bf16 FLOP/s, 3.35e12 B/s HBM3, 450e9 B/s NVLink 4 one way). A — "
+            "is a count the cell does not have: compute_s and memory_s on "
+            "wtbc (data-dependent loops), collective_s where DTensor has no "
+            "rule for an op of the cell (\"no rule\"); dominant and the "
+            "fraction then weigh the terms the cell has.  A DTensor count "
+            "(\"torch <release>\") is DTensor's choice of collectives for "
+            "the port's program with its constraints applied; its rules "
+            "differ between torch releases, and so may the count.")
     return hdr + "\n".join(lines) + note
 
 

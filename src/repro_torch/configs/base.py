@@ -139,7 +139,9 @@ def gradients(loss_fn, params, batch, cfg):
     """``(grads, loss, metrics)``: ``loss_fn(params, batch, cfg)`` with
     autograd on and its gradient with respect to every parameter leaf, as a
     tree of ``params``' structure and dtypes (a leaf the loss does not reach
-    gets zeros).  ``params`` are read through detached aliases, so the
+    gets zeros; on ``DTensor`` parameters each gradient is redistributed
+    to its parameter's placements, ``layers.placed_like``).  ``params`` are
+    read through detached aliases, so the
     caller's tensors are left as they are; the loss and metrics come back
     detached."""
     leaves = []
@@ -152,6 +154,6 @@ def gradients(loss_fn, params, batch, cfg):
         loss, metrics = loss_fn(tree_map(alias, params), batch, cfg)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                     materialize_grads=True)
-    it = iter(grads)
+    it = iter(L.placed_like(g, p) for g, p in zip(grads, leaves))
     return (tree_map(lambda _: next(it), params), loss.detach(),
             {k: v.detach() for k, v in metrics.items()})

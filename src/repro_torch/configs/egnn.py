@@ -14,6 +14,8 @@ Every cell is a train cell: ``make_step(cfg, "train")`` is
 """
 from __future__ import annotations
 
+import functools
+
 from repro_torch.configs.base import ArchDef, Cell, F32, I32, meta, pad_to
 from repro_torch.models import gnn
 
@@ -84,9 +86,12 @@ class EGNNArch(ArchDef):
             batch.update(labels=node, label_mask=node)
         return {"batch": batch}
 
-    def make_step(self, cfg, kind: str):
+    def make_step(self, cfg, kind: str, *, rules=None):
+        """The train step; ``rules``: the reference's constraints
+        (``layers.constrain``)."""
         if kind == "train":
-            return self.train_wrapper(gnn.loss_fn, cfg)
+            return self.train_wrapper(functools.partial(gnn.loss_fn,
+                                                        rules=rules), cfg)
         raise ValueError(f"egnn has only train cells, not {kind!r}")
 
 

@@ -90,21 +90,22 @@ class LMArch(ArchDef):
                 "tokens": rules.spec("batch"),
                 "cache_len": ()}
 
-    def make_step(self, cfg, kind: str, *, mesh=None):
+    def make_step(self, cfg, kind: str, *, mesh=None, rules=None):
         """The cell's step; ``mesh`` (a ``launch/mesh.MeshShape``) goes to
         every MoE layer, which takes expert parallelism where the reference
-        would (``models/moe.py``)."""
+        would (``models/moe.py``); ``rules`` to the reference's constraints
+        (``layers.constrain``)."""
         if kind == "train":
-            return self.train_wrapper(functools.partial(T.loss_fn, mesh=mesh),
-                                      cfg)
+            return self.train_wrapper(functools.partial(
+                T.loss_fn, mesh=mesh, rules=rules), cfg)
         if kind == "prefill":
             def prefill_step(params, tokens):
-                return T.prefill(params, tokens, cfg, mesh=mesh)
+                return T.prefill(params, tokens, cfg, mesh=mesh, rules=rules)
             return prefill_step
         if kind == "decode":
             def serve_step(params, caches, tokens, cache_len):
                 return T.decode_step(params, caches, tokens, cache_len, cfg,
-                                     mesh=mesh)
+                                     mesh=mesh, rules=rules)
             return serve_step
         raise ValueError(kind)
 

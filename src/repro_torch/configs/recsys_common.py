@@ -11,6 +11,8 @@ Shapes (assigned set):
 """
 from __future__ import annotations
 
+import functools
+
 from repro_torch.configs.base import ArchDef, Cell, F32, I32, meta
 from repro_torch.models import recsys
 
@@ -78,12 +80,16 @@ class RecsysArch(ArchDef):
         return {"batch": {k: mat if v.dim() == 2 else row
                           for k, v in b.items()}}
 
-    def make_step(self, cfg, kind: str):
+    def make_step(self, cfg, kind: str, *, rules=None):
+        """The cell's step; ``rules``: the reference's constraints
+        (``layers.constrain``) on the train and serve steps (the dry run
+        counts a retrieval cell's collectives from ``forward``)."""
         if kind == "train":
-            return self.train_wrapper(recsys.loss_fn, cfg)
+            return self.train_wrapper(functools.partial(recsys.loss_fn,
+                                                        rules=rules), cfg)
         if kind == "serve":
             def serve_step(params, batch):
-                return recsys.serve(params, batch, cfg)
+                return recsys.serve(params, batch, cfg, rules=rules)
             return serve_step
         if kind == "retrieval":
             def retrieval_step(params, batch):

@@ -32,6 +32,15 @@ overflowed; ``bound`` the max over shards.  A slot is certified only if its
 score *strictly* beats that bound (a tie across shards could hide a
 lower-document tie winner behind another shard's frontier), and the
 reported bound also covers the best candidate the merge dropped.
+
+**Collectives** (``merge_collectives``).  On a mesh the merge is the
+reference's program: for each shard axis in turn, the documents and the
+scores are all-gathered over it and folded into the candidate axis, then
+``iters``, ``pops``, ``overflowed`` and ``padded`` are summed and ``bound``
+maxed over each axis, one reduction each.  The port merges its device list
+in one step on ``devices[0]`` (``gather_candidates``), which takes from the
+shards the bytes that those gathers deliver; the dry run
+(``launch/dryrun.py``) counts the list.
 """
 from __future__ import annotations
 
@@ -368,15 +377,57 @@ def distributed_topk(sharded: ShardedWTBC, words: torch.Tensor,
                       device=sharded.devices[0], has_pad=method != "drb-or")
 
 
+def gather_candidates(results: Sequence[DRResult], bases: Sequence[int],
+                      device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Every shard's (B, k) documents (as global ids, -1 kept) and scores,
+    side by side in shard order on ``device``: (B, n_shards x k) each."""
+    dev = torch.device(device)
+    all_d = torch.cat([torch.where(r.docs >= 0, r.docs + b, -1).to(dev)
+                       for r, b in zip(results, bases)], -1)
+    all_s = torch.cat([r.scores.to(dev) for r in results], -1)
+    return all_d, all_s
+
+
+#: the merge's reductions over a shard axis: (kind, leaf, dtype)
+MERGE_REDUCTIONS = (("sum", "iters", torch.int32), ("sum", "pops", torch.int32),
+                    ("sum", "overflowed", torch.int32),
+                    ("sum", "padded", torch.int32),
+                    ("max", "bound", torch.float32))
+
+
+def merge_collectives(batch: int, k: int, axes: Sequence[tuple[str, int]], *,
+                      has_pad: bool = True) -> list[dict]:
+    """The merge's collectives on a mesh whose shard axes are ``axes``
+    (``(name, size)``, in the order they are gathered), for (B, k) results
+    per shard, in program order: per axis of n shards, an all-gather of the
+    documents (int32) and one of the scores (float32), each delivering (n,
+    B, k x the shards already folded in); then per axis one all-reduce of
+    each ``MERGE_REDUCTIONS`` leaf, (B,), ``padded`` only where ``has_pad``.
+    Each entry: ``kind`` ("all-gather" / "all-reduce"), ``op`` ("gather",
+    "sum", "max"), ``leaf``, ``axis``, ``shape`` (what the op delivers) and
+    ``dtype``."""
+    out, folded = [], 1
+    for name, n in axes:
+        for leaf, dtype in (("docs", torch.int32), ("scores", torch.float32)):
+            out.append({"kind": "all-gather", "op": "gather", "leaf": leaf,
+                        "axis": name, "shape": (n, batch, k * folded),
+                        "dtype": dtype})
+        folded *= n
+    for name, _ in axes:
+        for op, leaf, dtype in MERGE_REDUCTIONS:
+            if leaf != "padded" or has_pad:
+                out.append({"kind": "all-reduce", "op": op, "leaf": leaf,
+                            "axis": name, "shape": (batch,), "dtype": dtype})
+    return out
+
+
 def merge_topk(results: Sequence[DRResult], bases: Sequence[int], *, k: int,
                device, has_pad: bool = True) -> DRResult:
     """Merge per-shard (B, k) results (shard order; shard ``s``'s documents
     start at global id ``bases[s]``) into one on ``device`` (module
     docstring)."""
     dev = torch.device(device)
-    all_d = torch.cat([torch.where(r.docs >= 0, r.docs + b, -1).to(dev)
-                       for r, b in zip(results, bases)], -1)
-    all_s = torch.cat([r.scores.to(dev) for r in results], -1)
+    all_d, all_s = gather_candidates(results, bases, dev)
     # (k+1)-wide: slot k is the best candidate the merge DROPS, folded into
     # the reported bound; the stable sort keeps the lower gathered index —
     # the lower global document — first among equal scores

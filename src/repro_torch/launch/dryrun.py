@@ -47,11 +47,49 @@ writes one JSON record holding:
   step, global and per device (even split).
 * **model FLOPs** — ``analysis/roofline.model_flops_for`` (the reference's
   analytic formulas).
-* **collectives: null** — with no partitioner there are no collective bytes
-  to count.  Real counts would come from DTensor placements over a fake
-  process group under ``CommDebugMode`` (ROADMAP).  On an EP cell the note
-  names the first term to count: the ``psum`` of each MoE layer's (T_loc,
-  D) partials, ``2 x T_loc x D x bytes`` per device.
+* **collectives** — the reference's record, ``{kind: {"count", "bytes"},
+  "total_bytes"}`` over ``COLLECTIVES``, per device, with its byte model:
+  an all-reduce moves twice its payload, every other kind once; the payload
+  is the op's largest tensor (a gather's output, a reduce-scatter's input).
+  Where the counts come from:
+
+  - **``wtbc`` cells** (the paper's deployment): the merge's own list,
+    ``core/distributed.merge_collectives`` over the mesh's axes at the
+    config's batch and k — per axis two all-gathers and one reduction per
+    loop counter.  Exact.
+  - **every other cell**: each argument placed as a ``DTensor`` by its spec
+    (``place``) on a device mesh of the mesh's shape over a ``fake``
+    process group (``fake_mesh``: one device's program, its collectives
+    issued and not run), the step run on ``meta`` under
+    ``implicit_replication`` (tensors the step makes are replicated),
+    ``CommDebugMode`` and ``CollectiveLog``, which reads each functional
+    collective's kind and payload, with two of ``DTensor``'s rules changed
+    (``counting_rules``: a view that would split a dimension unevenly
+    reshards instead of raising, and ``log_sigmoid_backward`` gets the
+    pointwise rule it lacks).  The in-step constraints are the
+    reference's, at its sites and by its logical names
+    (``layers.constrain``), and they act: each pins its tensor's layout
+    where the reference's code names one (``CONSTRAIN_NOTE``; the
+    reference's own raise on its ``Explicit`` meshes and are skipped,
+    ROADMAP R13).  Between them ``DTensor`` chooses each op's placements,
+    and its rules change between torch releases, so the record names the
+    release (``collectives_torch``).  Where ``DTensor`` has no sharding
+    rule for an op of the step, or its propagation fails there, the
+    record's ``collectives`` is null and ``collectives_stopped_at`` names
+    the op.  These are ``DTensor``'s collectives for the port's program,
+    not XLA's: the reference's partitioner and combiner choose others
+    (``test_torch_collectives.py`` pins both).
+  - **EP's ``psum``** (an EP cell's ``moe.psum``): one all-reduce of the
+    (T_loc, D) partial outputs per MoE layer, 2 x T_loc x D x bytes, from
+    the layout, the one source of the number.  The ``DTensor`` run stands
+    in for each EP layer with one device's program of the reference's
+    ``shard_map`` (``_ep_dtensor``), which issues that all-reduce where
+    the layer's partial output becomes replicated
+    (``test_torch_collectives.py`` holds the two equal).
+
+  The reference's ``probe_groups`` is not ported: it compiles one and two
+  layer groups because XLA's cost analysis counts a ``scan`` body once,
+  and the port runs and counts every layer.
 
 Three cells need help to run on ``meta``: decode gets the shape's cache
 length as a Python int (``seq - 1``, the last slot of the cache); SASRec's
@@ -82,10 +120,12 @@ import itertools
 import json
 import math
 import pathlib
+import re
 import time
 import traceback
 
 import torch
+import torch.distributed as dist
 from torch.utils import checkpoint
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
@@ -94,9 +134,11 @@ from torch.utils.flop_counter import FlopCounterMode
 from repro_torch.analysis import roofline
 from repro_torch.configs import base, recsys_common, registry, wtbc_paper
 from repro_torch.configs.lm_common import LM_SHAPES
+from repro_torch.core import distributed
 from repro_torch.kernels import topk_score
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.mesh import MeshShape
+from repro_torch.models import layers as L
 from repro_torch.models import moe, recsys
 from repro_torch.optim import adamw
 
@@ -117,13 +159,37 @@ FLOPS_NOTE = ("torch.utils.flop_counter over the eager step on meta tensors; "
               "matmul-like ops only")
 BYTES_NOTE = ("every aten op's input and output bytes, views excluded: the "
               "eager, unfused step's traffic")
-NO_COLLECTIVES = ("no partitioner: nothing partitions the step, so no "
-                  "collective bytes are counted (ROADMAP: DTensor placements "
-                  "over a fake process group under CommDebugMode)")
-EP_COLLECTIVES = ("; EP's psum of each MoE layer's (T_loc, D) partial "
-                  "outputs, 2 x T_loc x D x bytes per device a layer (the "
-                  "record's moe.psum_bytes_per_layer), is the first term to "
-                  "count (ROADMAP Queue 1 item 8)")
+COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+               "collective-permute")
+#: the functional collectives DTensor issues, by the reference's kinds
+FUNCOL_KINDS = {"all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+                "all_reduce_coalesced": "all-reduce",
+                "all_reduce_coalesced_": "all-reduce",
+                "all_gather_into_tensor": "all-gather",
+                "all_gather_into_tensor_out": "all-gather",
+                "all_gather_into_tensor_coalesced": "all-gather",
+                "reduce_scatter_tensor": "reduce-scatter",
+                "reduce_scatter_tensor_out": "reduce-scatter",
+                "reduce_scatter_tensor_coalesced": "reduce-scatter",
+                "all_to_all_single": "all-to-all",
+                "isend": "collective-permute", "irecv": "collective-permute",
+                "batch_p2p_ops": "collective-permute"}
+#: functional ops that move nothing (the others raise: e.g. a broadcast
+#: has no kind in ``COLLECTIVES``)
+FUNCOL_QUIET = ("wait_tensor", "_wrap_tensor_autograd")
+WTBC_COLLECTIVES = ("the merge's own collectives (core/distributed."
+                    "merge_collectives): per shard axis an all-gather of the "
+                    "documents and one of the scores, then one all-reduce per "
+                    "loop counter; exact")
+DTENSOR_COLLECTIVES = ("DTensor's collectives for one device of the mesh: "
+                       "arguments placed by their specs over a fake process "
+                       "group, the step run on meta under CommDebugMode")
+CONSTRAIN_NOTE = ("the in-step constraints act (layers.constrain at the "
+                  "reference's sites); the reference's own raise on its "
+                  "Explicit jax.make_mesh axes and are skipped (ROADMAP R13)")
+NO_RULE = "DTensor has no sharding rule for {op}: no collectives counted"
+NO_PROPAGATION = ("DTensor's sharding propagation failed for {op} ({why}): "
+                  "no collectives counted")
 EP_COUNT = ("the pairs of the first b blocks' first m shards counted for "
             "(b, m) = (1, 1), (2, 1), (1, 2), (2, 2) and extrapolated "
             "bilinearly to every pair; the router runs once a block")
@@ -312,6 +378,15 @@ def ep_layout(arch, cell: base.Cell, cfg, mesh: MeshShape | None
                 (), dtype=cfg.dtype).element_size()}
 
 
+def ep_psum(cfg, layout: dict) -> dict:
+    """EP's ``psum``: one all-reduce of the (T_loc, D) partial outputs per
+    MoE layer, its bytes counted twice (``psum_bytes_per_layer``)."""
+    n = layout["moe_layers"]
+    return {"count": n, "bytes": n * layout["psum_bytes_per_layer"],
+            "shape": [layout["tokens_per_block"], cfg.d_model],
+            "dtype": str(cfg.dtype).removeprefix("torch.")}
+
+
 def ep_pair_flops(cfg, layout: dict) -> dict:
     """One (block, shard) pair's forward FLOPs on ``meta``: the experts'
     batched matmuls (``3 x 2 x E_loc x C x D x F``); and the router's on a
@@ -422,6 +497,309 @@ def _count_retrieval(counts: Counts, params, batch: dict, cfg) -> None:
 
 
 # ---------------------------------------------------------------------------
+# collectives
+# ---------------------------------------------------------------------------
+
+def collective_record(ops: list[dict]) -> dict:
+    """The reference's record of a list of ops (each with its ``kind`` and
+    its payload ``bytes``): per kind the count and the bytes, an all-reduce
+    counted twice, and ``total_bytes``."""
+    out = {k: {"count": 0, "bytes": 0} for k in COLLECTIVES}
+    for op in ops:
+        out[op["kind"]]["count"] += 1
+        out[op["kind"]]["bytes"] += (2 if op["kind"] == "all-reduce" else 1) \
+            * op["bytes"]
+    out["total_bytes"] = sum(v["bytes"] for v in out.values())
+    return out
+
+
+def wtbc_collectives(arch, cell: base.Cell, cfg, mesh: MeshShape
+                     ) -> list[dict]:
+    """The ops of a ``wtbc`` cell's merge over every axis of ``mesh``
+    (``distributed.merge_collectives``), each with its payload bytes."""
+    ops = distributed.merge_collectives(
+        cfg.query_batch, cfg.k, tuple(zip(mesh.axis_names, mesh.sizes)),
+        has_pad=wtbc_paper.SHAPES[cell.shape] != "drb-or")
+    for op in ops:
+        op["bytes"] = math.prod(op["shape"]) * op["dtype"].itemsize
+        op["dtype"] = str(op["dtype"]).removeprefix("torch.")
+    return ops
+
+
+@contextlib.contextmanager
+def fake_mesh(mesh: MeshShape):
+    """A ``DeviceMesh`` of ``mesh``'s shape and axis names over a ``fake``
+    process group of ``mesh.size`` ranks (this process is rank 0: its
+    collectives are issued, with their shapes, and not run).  The group is
+    process-global: it is destroyed on the way out, and entering while
+    another is up raises."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialized")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=mesh.size)
+    try:
+        yield init_device_mesh("cpu", mesh.sizes,
+                               mesh_dim_names=mesh.axis_names)
+    finally:
+        dist.destroy_process_group()
+
+
+def place(tree, specs, dm):
+    """``tree`` with every tensor leaf a ``DTensor`` on ``dm``: its spec's
+    placements (``layers.placements``), the local block this rank holds (a
+    dimension its axes do not divide is cut as ``torch.chunk`` cuts it) on
+    ``meta``.  Other leaves are kept."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    if isinstance(tree, torch.Tensor):
+        pl = L.placements(tuple(specs), tuple(dm.mesh_dim_names), tree.dim())
+        shape, _ = compute_local_shape_and_global_offset(tree.shape, dm, pl)
+        local = torch.empty(shape, dtype=tree.dtype, device="meta")
+        return DTensor.from_local(local, dm, pl, run_check=False,
+                                  shape=tree.shape, stride=tree.stride())
+    if isinstance(tree, dict):
+        return {k: place(v, specs[k], dm) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(place(getattr(tree, f), getattr(specs, f), dm)
+                            for f in tree._fields))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(place(t, s, dm)
+                          for t, s in zip(tree, specs, strict=True))
+    return tree
+
+
+class CollectiveLog(TorchDispatchMode):
+    """Every functional collective issued under it (``DTensor`` desugars its
+    redistributions into them): its kind (``FUNCOL_KINDS``), the shape and
+    dtype of its largest tensor and that tensor's bytes, the payload."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops: list[dict] = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented          # let DTensor desugar first
+        out = func(*args, **(kwargs or {}))
+        name = func._overloadpacket.__name__
+        if func.namespace == "_c10d_functional" and name not in FUNCOL_QUIET:
+            if name not in FUNCOL_KINDS:
+                raise NotImplementedError(f"collective {func} is not counted")
+            big = max((x for x in tree_flatten((args, kwargs, out))[0]
+                       if isinstance(x, torch.Tensor)),
+                      key=lambda x: x.numel() * x.element_size())
+            self.ops.append({"kind": FUNCOL_KINDS[name],
+                             "shape": tuple(big.shape),
+                             "dtype": str(big.dtype).removeprefix("torch."),
+                             "bytes": big.numel() * big.element_size()})
+        return out
+
+
+def _ep_dtensor(params: dict, x, cfg, mesh=None):
+    """One device's program of the reference's ``_moe_ep_shardmap`` on
+    ``DTensor`` activations and weights over a device mesh with a ``model``
+    axis (``moe.moe_apply_ep``'s signature; the ``MeshShape`` is read from
+    ``x``'s mesh).  Its ``in_specs`` are redistributions — the tokens split
+    over the mesh's ``pod`` x ``data`` axes and replicated over ``model``,
+    the experts split over ``model`` only, the router and the shared expert
+    replicated — and the pair runs ``moe._router`` and ``moe._ep_shard`` on
+    the local blocks (``to_local``, whose gradients are partial over the
+    axes the block is replicated on, as ``shard_map`` transposes them).
+    The partial output comes back ``Partial`` over ``model``
+    (``from_local``) and is made replicated there: the ``psum``
+    (``_ep_psum``).  ``aux`` is the mean over every axis (the reference's
+    ``pmean``s)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    dm = x.device_mesh
+    names = tuple(dm.mesh_dim_names)
+    tok = tuple(a for a in ("pod", "data") if a in names)
+    M = dm.size(names.index("model"))
+    T, D = x.shape
+    T_loc = T // math.prod(dm.size(names.index(a)) for a in tok)
+    entry = tok if len(tok) > 1 else (tok[0] if tok else None)
+    tok_pl = L.placements((entry, None), names, 2)
+
+    def local(t, spec):
+        """``t`` redistributed to ``spec``, and its local block, whose
+        gradient is partial over the axes the spec replicates it on."""
+        pl = L.placements(spec, names, t.dim())
+        grad_pl = [Partial() if isinstance(p, Replicate) else p for p in pl]
+        t = t.redistribute(dm, pl)
+        return t, t.to_local(grad_placements=grad_pl)
+
+    xr, xb = local(x, (entry, None))
+    ps = {k: local(params[k], ("model", None, None))[1]
+          for k in ("wi_gate", "wi_up", "wo")}
+    gates, eidx, _, aux = moe._router(
+        {"router": local(params["router"], ())[1]}, xb, cfg)
+    part = moe._ep_shard(ps, xb, gates, eidx, dm.get_local_rank("model"),
+                         moe.ep_capacity(T_loc, cfg, M))
+    summed = [Partial() if n == "model" else p for n, p in zip(names, tok_pl)]
+    out = _ep_psum(part, dm, summed, tok_pl, (T, D))
+    if cfg.n_shared:
+        shared = {k: w.redistribute(dm, [Replicate()] * len(names))
+                  for k, w in params["shared"].items()}
+        out = out + L.mlp_apply(shared, xr)
+    aux = DTensor.from_local(aux, dm, [Partial("avg")] * len(names),
+                             shape=(), stride=())
+    return out, aux.redistribute(dm, [Replicate()] * len(names))
+
+
+def _ep_psum(part: torch.Tensor, dm, summed: list, out_pl: list,
+             shape: tuple[int, int]):
+    """EP's ``psum``: this device's partial output block as a ``DTensor``
+    of ``shape``, ``Partial`` over ``model`` (``summed``), made ``out_pl``
+    (replicated over ``model``): one all-reduce of (T_loc, D)."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(part, dm, summed, shape=shape,
+                              stride=(shape[1], 1)).redistribute(dm, out_pl)
+
+
+@contextlib.contextmanager
+def _dtensor_ep():
+    """Inside, every EP layer runs ``_ep_dtensor`` (``moe.moe_apply`` takes
+    ``moe.moe_apply_ep`` where the reference takes expert parallelism)."""
+    real = moe.moe_apply_ep
+    moe.moe_apply_ep = _ep_dtensor
+    try:
+        yield
+    finally:
+        moe.moe_apply_ep = real
+
+
+def op_shapes(ops: list[dict]) -> list[dict]:
+    """``ops`` grouped by (kind, shape, dtype): each group's count and
+    payload bytes, in the order each group first appears."""
+    out: dict[tuple, dict] = {}
+    for op in ops:
+        key = (op["kind"], op["shape"], op["dtype"])
+        g = out.setdefault(key, {"kind": op["kind"], "shape": list(op["shape"]),
+                                 "dtype": op["dtype"], "count": 0,
+                                 "bytes": op["bytes"]})
+        g["count"] += 1
+    return list(out.values())
+
+
+def run_placed(arch, cell: base.Cell, cfg, mesh: MeshShape, dm,
+               log: CollectiveLog) -> list[dict]:
+    """The ops of the cell's step on ``DTensor`` arguments over ``dm``
+    (``place``), with the cell's rules.  A retrieval cell runs K6's
+    function on the placed candidates — their scores, then the top-k — and
+    a tabular one counts one chunk of ``recsys.retrieval_chunk`` rows (every
+    chunk has its shape) once per chunk, then the top-k over every
+    candidate's score."""
+    rules = base.make_rules(mesh.axis_names, cell)
+    if arch.family == "lm":
+        step = arch.make_step(cfg, cell.kind, mesh=mesh, rules=rules)
+    else:
+        step = arch.make_step(cfg, cell.kind, rules=rules)
+    groups = argument_trees(arch, cell, cfg, rules)
+    args = [place(tree, specs, dm) for _, tree, specs in groups]
+    if cell.kind == "decode":
+        args[-1] = LM_SHAPES[cell.shape]["seq"] - 1
+    if cell.kind != "retrieval":
+        step(*args)
+        return log.ops
+    k = recsys_common.RETRIEVAL_K
+    if cfg.interaction == "self-attn-seq":
+        cands, h = recsys.sasrec_candidates(*args, cfg)
+        recsys.top_k((cands.float() @ h.float())[None], k)
+        return log.ops
+    params, batch = args
+    spec = tuple(groups[-1][2]["candidates"])
+    C, n = batch["candidates"].shape[0], recsys.retrieval_chunk(cfg)
+    # the chunk's rows, split as the candidates are: each candidate in
+    # sparse slot 0 beside the user's features (``candidate_scores``)
+    rows = {"sparse": base.meta((n, cfg.n_sparse), base.I32)}
+    if cfg.n_dense:
+        rows["dense"] = base.meta((n, cfg.n_dense), batch["dense"].dtype)
+    recsys.forward(params, {k: place(v, spec + (None,), dm)
+                            for k, v in rows.items()}, cfg, rules=rules)
+    chunk = list(log.ops)
+    recsys.top_k(place(base.meta((C,), base.F32), spec, dm)[None], k)
+    return chunk * -(-C // n) + log.ops[len(chunk):]
+
+
+@contextlib.contextmanager
+def counting_rules():
+    """Two of ``DTensor``'s sharding rules changed inside: ``view`` and
+    ``_unsafe_view`` run by its ``reshape`` rule — where a view splits a
+    dimension over shards that the split's leading size does not divide (a
+    GQA projection or its gradient over more shards than heads), the input
+    is redistributed where the view rule raises (XLA's partitioner
+    reshards there too); and ``log_sigmoid_backward``, an elementwise op
+    that ``DTensor`` has no rule for, gets its pointwise rule (its buffer
+    has the input's shape on ``meta``)."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._op_schema import RuntimeSchemaInfo
+    from torch.distributed.tensor._ops import _pointwise_ops, _view_ops
+    aten = torch.ops.aten
+    prop = DTensor._op_dispatcher.sharding_propagator
+    views = (aten.view.default, aten._unsafe_view.default)
+    saved = {op: prop.op_strategy_funcs[op] for op in views}
+    pointwise = aten.log_sigmoid_backward.default
+    # torch >= 2.12 registers pointwise rules per mesh dimension, earlier
+    # releases as whole-mesh strategies
+    single = getattr(_pointwise_ops, "_register_single_dim_pointwise", None)
+    try:
+        for op in views:
+            _view_ops.register_op_strategy_map(
+                op, torch.Tensor.view, schema_info=RuntimeSchemaInfo(1))
+        if single is not None:
+            single(pointwise)
+        else:
+            prop.register_op_strategy(pointwise,
+                                      _pointwise_ops.pointwise_strategy)
+        prop.propagate_op_sharding.cache_clear()
+        yield
+    finally:
+        prop.op_strategy_funcs.update(saved)
+        prop.op_strategy_funcs.pop(pointwise, None)
+        for table in ("op_single_dim_strategy_funcs",
+                      "op_to_schema_info_for_single_dim_strategy"):
+            getattr(prop, table, {}).pop(pointwise, None)
+        prop.propagate_op_sharding.cache_clear()
+
+
+def count_collectives(arch, cell: base.Cell, cfg, mesh: MeshShape
+                      ) -> tuple[list[dict] | None, str, str | None]:
+    """The functional collectives of one device's program of the cell
+    (``fake_mesh``, ``run_placed``), the note, and None; or None, a note
+    and the op where ``DTensor`` has no sharding rule for an op of the step
+    or its sharding propagation fails there (the rules differ between torch
+    releases: the record names the release)."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    from torch.distributed.tensor.experimental import implicit_replication
+    with fake_mesh(mesh) as dm:
+        log = CollectiveLog()
+        try:
+            with counting_rules(), _dtensor_ep(), implicit_replication(), \
+                    CommDebugMode() as comm, log:
+                ops = run_placed(arch, cell, cfg, mesh, dm, log)
+        except NotImplementedError as e:
+            op = re.search(r"Operator (\S+) does not have a sharding strategy",
+                           str(e))
+            if op is None:
+                raise
+            return None, NO_RULE.format(op=op.group(1)), op.group(1)
+        except RuntimeError as e:
+            op = re.search(r"Sharding propagation failed for ([\w.]+)\(",
+                           str(e))
+            if op is None:
+                raise
+            return None, NO_PROPAGATION.format(
+                op=op.group(1), why=str(e).splitlines()[0][:120]), op.group(1)
+    if comm.get_total_counts() != len(log.ops):
+        raise RuntimeError(f"CommDebugMode counted {comm.get_total_counts()} "
+                           f"collectives, the log {len(log.ops)}")
+    return ops, DTENSOR_COLLECTIVES, None
+
+
+# ---------------------------------------------------------------------------
 # cells
 # ---------------------------------------------------------------------------
 
@@ -443,6 +821,10 @@ def lower_cell(arch, cell: base.Cell, mesh: MeshShape, mesh_name: str,
     if arch.name == "wtbc":
         rec.update(flops=None, bytes=None, model_flops=None,
                    counts_note="data-dependent search loops: not counted")
+        ops = wtbc_collectives(arch, cell, cell_config(arch, cell,
+                                                       cfg_override), mesh)
+        rec.update(collectives=collective_record(ops),
+                   collectives_note=WTBC_COLLECTIVES, collective_ops=ops)
     else:
         cfg = cell_config(arch, cell, cfg_override)
         layout = ep_layout(arch, cell, cfg, mesh)
@@ -461,13 +843,19 @@ def lower_cell(arch, cell: base.Cell, mesh: MeshShape, mesh_name: str,
         rec["model_flops"] = roofline.model_flops_for(cell.cell_id, cell.kind) \
             if cfg_override is None else None
         rec["flops_note"] = arch.flops_note(cfg)
+        ops, note, stopped = count_collectives(arch, cell, cfg, mesh)
+        rec["collectives"] = None if ops is None else collective_record(ops)
+        rec["collectives_note"] = note
+        rec["collectives_torch"] = torch.__version__
+        if stopped is not None:
+            rec["collectives_stopped_at"] = stopped
+        else:
+            rec["collective_shapes"] = op_shapes(ops)
+            rec["constrain_note"] = CONSTRAIN_NOTE
         if layout is not None:
             rec["moe"] = {**layout, **ep_pair_flops(cfg, layout),
-                          "count": EP_COUNT}
-    rec.update({"ok": True, "collectives": None,
-                "collectives_note": NO_COLLECTIVES + (
-                    EP_COLLECTIVES if "moe" in rec else ""),
-                "count_s": round(time.time() - t0, 2)})
+                          "count": EP_COUNT, "psum": ep_psum(cfg, layout)}
+    rec.update({"ok": True, "count_s": round(time.time() - t0, 2)})
     return rec
 
 

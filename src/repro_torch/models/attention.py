@@ -129,9 +129,12 @@ def _flash_attend(q5, k, v, pattern_id: int, window: int, softcap, scale,
 def attend(params: dict, x: torch.Tensor, cfg: AttnConfig, pattern_id: int,
            *, use_rope: bool = True,
            kv_cache: tuple[torch.Tensor, torch.Tensor] | None = None,
-           cache_len: int | None = None) -> tuple[torch.Tensor, tuple]:
+           cache_len: int | None = None,
+           rules=None) -> tuple[torch.Tensor, tuple]:
     """x: (B, S, D).  Training/prefill when kv_cache is None; decode (S == 1,
     new token written in place at slot ``cache_len % S_kv``) otherwise.
+    ``rules``: the reference's constraints on q and k (prefill) and on the
+    caches (decode), ``layers.constrain``.
 
     Returns (output (B, S, D), kv pair (B, S_kv, KV, Dh))."""
     B, S, D = x.shape
@@ -151,6 +154,8 @@ def attend(params: dict, x: torch.Tensor, cfg: AttnConfig, pattern_id: int,
         if use_rope:
             q = L.rope(q, pos.expand(B, S), cfg.rope_theta)
             k = L.rope(k, pos.expand(B, S), cfg.rope_theta)
+        q = L.constrain(q, rules, "batch", "seq", "heads", None)
+        k = L.constrain(k, rules, "batch", "seq", "kv_heads", None)
         q5 = q.reshape(B, S, KV, G, Dh)
         if S >= FLASH_THRESHOLD:
             o5 = _flash_attend(q5, k, v, pattern_id, cfg.window, cfg.softcap,
@@ -172,6 +177,8 @@ def attend(params: dict, x: torch.Tensor, cfg: AttnConfig, pattern_id: int,
     slot = cache_len % S_kv
     ck[:, slot:slot + 1] = k.to(ck.dtype)
     cv[:, slot:slot + 1] = v.to(cv.dtype)
+    ck = L.constrain(ck, rules, "batch", "kv_seq", "kv_heads", None)
+    cv = L.constrain(cv, rules, "batch", "kv_seq", "kv_heads", None)
     kq_pos = torch.arange(S_kv, dtype=torch.int32, device=x.device)
     ring_full = cache_len >= S_kv               # window-sized ring has wrapped
     valid = (kq_pos <= cache_len) | ring_full

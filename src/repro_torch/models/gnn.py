@@ -81,10 +81,11 @@ def param_specs(cfg: EGNNConfig, rules: L.MeshRules) -> dict:
 
 
 def egnn_layer(p: dict, h, x, edges, n_nodes: int,
-               seg: L.Segments | None = None):
+               seg: L.Segments | None = None, rules=None):
     """h (N, H) features, x (N, D) coordinates, edges (E, 2) [src, dst];
     ``seg``: the edges' ``Segments`` by destination, when the caller made
-    them once for every layer."""
+    them once for every layer; ``rules``: the reference's constraint on the
+    messages (``layers.constrain``)."""
     src, dst = edges[:, 0].long(), edges[:, 1].long()
     if seg is None:
         seg = L.segments(dst, n_nodes)
@@ -93,6 +94,7 @@ def egnn_layer(p: dict, h, x, edges, n_nodes: int,
     diff = x_i - x_j
     d2 = (diff * diff).sum(-1, keepdim=True)
     m = _mlp(p["phi_e"], torch.cat([h_i, h_j, d2], dim=-1), final_act=True)
+    m = L.constrain(m, rules, "edges", None)
 
     # equivariant coordinate update (normalized by distance, +1 for stability)
     w = _mlp(p["phi_x"], m)
@@ -104,31 +106,34 @@ def egnn_layer(p: dict, h, x, edges, n_nodes: int,
     return h_new, x_new
 
 
-def forward(params: dict, batch: dict, cfg: EGNNConfig) -> torch.Tensor:
+def forward(params: dict, batch: dict, cfg: EGNNConfig, *,
+            rules=None) -> torch.Tensor:
     """batch: feats (N, F), coords (N, D), edges (E, 2), [graph_ids (N,)].
     Node logits (N, n_classes), or graph logits (n_graphs, n_classes) with
     ``graph_readout``.  The edges' stable sort by destination is made once
-    and every layer's sums reuse it."""
+    and every layer's sums reuse it.  ``rules``: the reference's
+    constraints on the embedded features and each layer's messages."""
     n_nodes = batch["feats"].shape[0]
     edges = batch["edges"]
     seg = L.segments(edges[:, 1], n_nodes)
     h = batch["feats"].to(cfg.dtype) @ params["embed_in"]
     x = batch["coords"].to(cfg.dtype)
+    h = L.constrain(h, rules, "nodes", None)
     for p in params["layers"]:
-        h, x = egnn_layer(p, h, x, edges, n_nodes, seg)
+        h, x = egnn_layer(p, h, x, edges, n_nodes, seg, rules)
     if cfg.graph_readout:
         pooled = L.segment_sum(h, batch["graph_ids"], cfg.n_graphs)
         return pooled @ params["head"]
     return h @ params["head"]
 
 
-def loss_fn(params, batch, cfg: EGNNConfig):
+def loss_fn(params, batch, cfg: EGNNConfig, *, rules=None):
     """(nll, {"nll": nll}): mean cross entropy over the labels, weighted by
     ``label_mask`` when the batch has one.  Differentiable
     (``EGNNArch.make_step(cfg, "train")`` takes its gradient): the backward
     of a ``Segments`` sum is ``segment_reduce``'s, a gather per row, and the
     node gathers' backward accumulates by index."""
-    logits = forward(params, batch, cfg).float()
+    logits = forward(params, batch, cfg, rules=rules).float()
     labels = batch["labels"].long()
     mask = batch.get("label_mask")
     logz = torch.logsumexp(logits, dim=-1)

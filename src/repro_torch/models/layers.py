@@ -10,9 +10,16 @@ parameter and input dimension is tagged with a logical name, and
 ``MeshRules`` maps logical names to mesh axes.  ``MeshRules.spec`` gives a
 tuple of mesh-axis entries (the reference's ``PartitionSpec`` entries: a
 mesh axis, a tuple of mesh axes, or None), which the dry run
-(``launch/dryrun.py``) reads to say what each device would hold.  The
-reference's ``constrain`` is not ported: the port runs a model on one
-device, so nothing inside a step is constrained to a mesh.
+(``launch/dryrun.py``) reads to say what each device would hold and to place
+each argument as a ``DTensor``.  ``constrain`` is the reference's in-step
+constraint: it returns a plain tensor as it is (every path that runs on a
+device), and redistributes a ``DTensor`` (the dry run's collective count)
+to the placements its logical names give, except where the reference's
+``with_sharding_constraint`` raises on a mesh of ``Auto`` axes and its
+``constrain`` returns ``x``.  (The reference's own meshes, from
+``jax.make_mesh``, have ``Explicit`` axes, on which every one of its
+constraints raises and is skipped: ROADMAP R13.  The port's dry run counts
+with its constraints acting, the layouts the reference's code names.)
 
 Initializers draw from a ``torch.Generator`` with the reference's
 distributions (dense: normal x ``(1/d_in)^0.5``).  They put their tensors on
@@ -74,6 +81,116 @@ class MeshRules:
         """One entry per dimension: the mesh axes ``logical`` maps to."""
         d = dict(self.rules)
         return tuple(d.get(ax) if ax is not None else None for ax in logical)
+
+
+def spec_axes(entry) -> tuple[str, ...]:
+    """The mesh axes one spec entry names, in order."""
+    return () if entry is None else (entry,) if isinstance(entry, str) \
+        else tuple(entry)
+
+
+def constraint_skip(spec: tuple, ndim: int,
+                    axis_names: tuple[str, ...]) -> str | None:
+    """Why the reference's ``with_sharding_constraint(x, P(*spec))`` raises
+    on a mesh of ``axis_names`` whose axes are ``Auto`` for an
+    ``ndim``-dimensional ``x``, so that its ``constrain`` returns ``x``;
+    None where it constrains.  JAX checks, in this order: a mesh axis named
+    twice (``DuplicateSpecError``), an axis the mesh lacks, and more entries
+    than dimensions.  A dimension its axes do not divide is no reason: JAX
+    pads it."""
+    named = [a for e in spec for a in spec_axes(e)]
+    if len(set(named)) < len(named):
+        return "duplicate mesh axis"
+    if any(a not in axis_names for a in named):
+        return "axis not in the mesh"
+    if len(spec) > ndim:
+        return "more entries than dimensions"
+    return None
+
+
+def placements(spec: tuple, axis_names: tuple[str, ...], ndim: int) -> list:
+    """The ``DTensor`` placements, one per mesh axis, of a spec: ``Shard(d)``
+    on each axis that dimension d's entry names, ``Replicate()`` on the
+    others.  An entry of several axes must name them in the mesh's order
+    (a dimension split over several mesh axes is cut major axis first)."""
+    from torch.distributed.tensor import Replicate, Shard
+    if len(spec) > ndim:
+        raise ValueError(f"spec {spec} has more entries than {ndim} dims")
+    out = [Replicate() for _ in axis_names]
+    for d, entry in enumerate(spec):
+        axes = spec_axes(entry)
+        pos = [axis_names.index(a) for a in axes]
+        if pos != sorted(pos):
+            raise NotImplementedError(
+                f"spec entry {entry} splits a dimension over mesh axes out of "
+                f"the mesh's order {axis_names}")
+        for i in pos:
+            out[i] = Shard(d)
+    return out
+
+
+def reduce_partial(x: torch.Tensor) -> torch.Tensor:
+    """A ``DTensor``'s partial placements reduced (made ``Replicate``);
+    anything else as it is.  For a partial whose reduction ``DTensor``
+    cannot carry through a later reshape (a vocab-split gather's masked
+    partial)."""
+    if type(x) is torch.Tensor:
+        return x
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    if not isinstance(x, DTensor) or not any(
+            isinstance(p, Partial) for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, [
+        Replicate() if isinstance(p, Partial) else p for p in x.placements])
+
+
+def placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """``g`` redistributed to ``p``'s placements where both are
+    ``DTensor``s (a parameter's gradient reduced to the parameter's
+    sharding, as the reference's gradients come); else ``g`` itself."""
+    if type(g) is torch.Tensor or type(p) is torch.Tensor:
+        return g
+    return g.redistribute(p.device_mesh, p.placements)
+
+
+def stacked_empty(x: torch.Tensor, n: int):
+    """An empty (n, *x.shape) tensor of x's dtype on x's device, to hold n
+    tensors like ``x``; for a ``DTensor``, split as ``x`` is on each of its
+    dimensions, the new leading one whole (replicated where ``x`` is
+    partial)."""
+    if type(x) is not torch.Tensor:
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        if isinstance(x, DTensor):
+            local = x.to_local()
+            pl = [Shard(p.dim + 1) if isinstance(p, Shard) else Replicate()
+                  for p in x.placements]
+            return DTensor.from_local(
+                local.new_empty((n, *local.shape)), x.device_mesh, pl,
+                run_check=False, shape=(n, *x.shape),
+                stride=torch.empty((n, *x.shape), device="meta").stride())
+    return x.new_empty((n, *x.shape))
+
+
+def constrain(x: torch.Tensor, rules: MeshRules, *logical: str | None):
+    """The reference's ``constrain`` (``with_sharding_constraint`` by
+    logical names).  A plain tensor, on any device, comes back as it is.
+    A ``DTensor`` is redistributed over its mesh to the placements of
+    ``rules.spec(*logical)``, except where ``constraint_skip`` names the
+    reason the reference's constraint raises there, which its ``except``
+    turns into ``return x``: then ``x`` comes back as it is too.  A
+    ``DeviceMesh``'s axes constrain as JAX's ``Auto`` axes do.  Any other
+    failure raises."""
+    if type(x) is torch.Tensor:
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    spec = rules.spec(*logical)
+    if constraint_skip(spec, x.dim(), names) is not None:
+        return x
+    return x.redistribute(mesh, placements(spec, names, x.dim()))
 
 
 # ---------------------------------------------------------------------------
@@ -173,7 +290,7 @@ def segments(ids: torch.Tensor, num_segments: int) -> Segments:
     key = ids.long()
     key = torch.where((key >= 0) & (key < n), key, n)
     order = torch.sort(key, stable=True).indices
-    lengths = torch.zeros(n + 1, dtype=torch.long, device=key.device)
+    lengths = key.new_zeros(n + 1)
     lengths.index_add_(0, key, torch.ones_like(key))
     return Segments(order, lengths, n)
 
@@ -206,5 +323,5 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean token NLL; logits (..., V) any float dtype, labels int."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    return (logz - gold).mean()
+    gold = reduce_partial(torch.gather(logits, -1, labels[..., None].long()))
+    return (logz - gold[..., 0]).mean()

@@ -53,6 +53,16 @@ Where the port must match the reference exactly:
 
 The reference's custom-VJP dispatch ops are plain forward gathers and
 scatters here, differentiated by autograd on both paths.
+
+**Constraints and the dry run.**  ``rules`` (``layers.MeshRules``) puts the
+reference's constraints at the dense dispatch's sites that the port's
+dense path has: the tokens, the sorted routing arrays, the gathered
+copies, the (E, C, D) buffers and the combined output — the forward halves
+of its custom-VJP ops (their backward constraints have no place here).
+They act on ``DTensor`` activations only (``layers.constrain``): in the
+dry run's collective count, which also stands in for the EP path with one
+device's program of the reference's ``shard_map``
+(``launch/dryrun._ep_dtensor``).
 """
 from __future__ import annotations
 
@@ -146,22 +156,23 @@ def ep_capacity(n_local_tokens: int, cfg: MoEConfig, n_shards: int) -> int:
 
 
 def moe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig,
-              mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
+              mesh=None, *, rules=None) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (T, D) flattened tokens.  Returns (out (T, D), aux_loss ()).
 
     ``moe_apply_ep`` where ``use_ep(T, cfg, mesh)``, else the dense
-    dispatch."""
+    dispatch (constrained by ``rules``)."""
     if use_ep(x.shape[0], cfg, mesh):
         return moe_apply_ep(params, x, cfg, mesh)
-    return moe_apply_dense(params, x, cfg)
+    return moe_apply_dense(params, x, cfg, rules=rules)
 
 
-def moe_apply_dense(params: dict, x: torch.Tensor,
-                    cfg: MoEConfig) -> tuple[torch.Tensor, torch.Tensor]:
+def moe_apply_dense(params: dict, x: torch.Tensor, cfg: MoEConfig, *,
+                    rules=None) -> tuple[torch.Tensor, torch.Tensor]:
     """The reference's single-device path (``_moe_dense_dispatch``)."""
     gates, eidx, _, aux = _router(params, x, cfg)
-    out = _dispatch_combine(params, x, eidx, gates, cfg.n_experts,
-                            capacity(x.shape[0], cfg))
+    out = _dispatch_combine(params, L.constrain(x, rules, "tokens_flat", None),
+                            eidx, gates, cfg.n_experts,
+                            capacity(x.shape[0], cfg), rules=rules)
     if cfg.n_shared:
         out = out + L.mlp_apply(params["shared"], x)
     return out, aux
@@ -255,20 +266,22 @@ def _ep_shard(ps: dict, xb: torch.Tensor, gates: torch.Tensor,
 
 def _dispatch_combine(p: dict, x: torch.Tensor, eidx: torch.Tensor,
                       gates: torch.Tensor, E: int, C: int,
-                      spill: bool = False) -> torch.Tensor:
+                      spill: bool = False, rules=None) -> torch.Tensor:
     """Sort-based dispatch of x's (T, K) copies into E experts' (E, C, D)
     buffer, the expert FFN, the gather back and the combine, the float32
     gates cast to x's dtype where they weight the copies (the reference's
     EP path casts them first: the same values).  With ``spill``, ``eidx``
     may hold E, the bucket of copies that are not this shard's: never
-    dispatched, they combine as 0."""
+    dispatched, they combine as 0.  ``rules``: the reference's constraints
+    (module docstring)."""
     T, D = x.shape
     K = eidx.shape[1]
     tok_ids = torch.arange(T, device=x.device).repeat_interleave(K)   # (T*K,)
     e_flat = eidx.reshape(-1)
     order = torch.argsort(e_flat, stable=True)
-    e_sorted, tok_sorted = e_flat[order], tok_ids[order]
-    g_sorted = gates.reshape(-1)[order]
+    e_sorted = L.constrain(e_flat[order], rules, "tokens_flat")
+    tok_sorted = L.constrain(tok_ids[order], rules, "tokens_flat")
+    g_sorted = L.constrain(gates.reshape(-1)[order], rules, "tokens_flat")
     # each bucket's first sorted copy (the exclusive cumsum of the buckets'
     # counts), from ops that need no data-dependent shape, so the dispatch
     # also runs on ``meta`` tensors
@@ -284,14 +297,17 @@ def _dispatch_combine(p: dict, x: torch.Tensor, eidx: torch.Tensor,
     row = torch.where(keep, e_sorted * C + slot, E * C)
 
     buf = torch.zeros((E * C + 1, D), dtype=x.dtype, device=x.device)
-    buf[row] = x[tok_sorted]
-    buf = buf[:E * C].view(E, C, D)
+    buf[row] = L.constrain(x[tok_sorted], rules, "tokens_flat", None)
+    buf = L.constrain(buf[:E * C].view(E, C, D), rules, "experts",
+                      "expert_capacity", None)
     h = F.silu(torch.einsum("ecd,edf->ecf", buf, p["wi_gate"]))
     h = h * torch.einsum("ecd,edf->ecf", buf, p["wi_up"])
-    out_buf = torch.einsum("ecf,efd->ecd", h, p["wo"])
+    out_buf = L.constrain(torch.einsum("ecf,efd->ecd", h, p["wo"]), rules,
+                          "experts", "expert_capacity", None)
 
     y = torch.where(keep[:, None],
                     out_buf.reshape(E * C, D)[row.clamp(max=E * C - 1)], 0)
+    y = L.constrain(y, rules, "tokens_flat", None)
     y = y * g_sorted[:, None].to(x.dtype)
     # combine: each token's K copies, bucket ascending, added left to right
     # from zeros (the sorted order the reference's scatter-add visits)
@@ -303,4 +319,4 @@ def _dispatch_combine(p: dict, x: torch.Tensor, eidx: torch.Tensor,
     for j in range(K):
         out = out + torch.gather(
             y_tk, 1, by_expert[:, j, None, None].expand(T, 1, D))[:, 0]
-    return out
+    return L.constrain(out, rules, "tokens_flat", None)

@@ -217,22 +217,26 @@ def _take(t: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return t[ids.long().clamp(0, t.shape[0] - 1)]
 
 
-def _lookup(tables: Sequence[torch.Tensor],
-            sparse_ids: torch.Tensor) -> torch.Tensor:
+def _lookup(tables: Sequence[torch.Tensor], sparse_ids: torch.Tensor,
+            rules=None) -> torch.Tensor:
     """sparse_ids (B, F) -> (B, F, d).  One gather per table (sizes
-    differ), each id clipped into its table."""
-    return torch.stack([_take(t, sparse_ids[:, f])
-                        for f, t in enumerate(tables)], dim=1)
+    differ), each id clipped into its table; constrained by ``rules`` as
+    the reference constrains it (``layers.constrain``)."""
+    v = torch.stack([_take(t, sparse_ids[:, f])
+                     for f, t in enumerate(tables)], dim=1)
+    return L.constrain(v, rules, "batch", None, None)
 
 
-def forward(params: dict, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
+def forward(params: dict, batch: dict, cfg: RecsysConfig, *,
+            rules=None) -> torch.Tensor:
     """Returns CTR logits (B,) for tabular towers, or (B, S, d) hidden states
-    for SASRec (scored against item embeddings by the callers)."""
+    for SASRec (scored against item embeddings by the callers).  ``rules``:
+    the reference's constraint on the looked-up embeddings."""
     if cfg.interaction == "self-attn-seq":
         return _sasrec_forward(params, batch["seq"], cfg)
 
     sparse = batch["sparse"]
-    v = _lookup(params["tables"], sparse)                      # (B, F, d)
+    v = _lookup(params["tables"], sparse, rules)               # (B, F, d)
     if cfg.interaction == "fm":
         lin = sum(_take(t, sparse[:, f])
                   for f, t in enumerate(params["linear"]))     # (B, 1)
@@ -279,7 +283,7 @@ def _sasrec_forward(params, seq, cfg: RecsysConfig) -> torch.Tensor:
     return h
 
 
-def loss_fn(params, batch, cfg: RecsysConfig):
+def loss_fn(params, batch, cfg: RecsysConfig, *, rules=None):
     """(loss, {"nll": loss}), differentiable (``RecsysArch.make_step(cfg,
     "train")`` takes its gradient: embedding rows gather their gradients by
     the index's backward, a sorted accumulation on the card).  SASRec: BCE
@@ -295,19 +299,19 @@ def loss_fn(params, batch, cfg: RecsysConfig):
         nll = -(F.logsigmoid(s_pos) + F.logsigmoid(-s_neg)) * m
         loss = nll.sum() / torch.clamp(m.sum(), min=1.0)
         return loss, {"nll": loss}
-    logits = forward(params, batch, cfg).float()
+    logits = forward(params, batch, cfg, rules=rules).float()
     y = batch["label"].float()
     loss = (-(y * F.logsigmoid(logits)
               + (1 - y) * F.logsigmoid(-logits))).mean()
     return loss, {"nll": loss}
 
 
-def serve(params, batch, cfg: RecsysConfig) -> torch.Tensor:
+def serve(params, batch, cfg: RecsysConfig, *, rules=None) -> torch.Tensor:
     """Online/offline scoring: sigmoid CTR (tabular) / next-item hidden (seq)."""
     if cfg.interaction == "self-attn-seq":
         h = _sasrec_forward(params, batch["seq"], cfg)
         return h[:, -1, :]                    # (B, d) user state
-    return torch.sigmoid(forward(params, batch, cfg))
+    return torch.sigmoid(forward(params, batch, cfg, rules=rules))
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,9 @@ key and value into its cache *in place* and returns the same tensors.
 
 Entry points (each takes ``mesh=`` for the MoE layers' expert
 parallelism, ``models/moe.py``; ``place_experts`` puts the shards on their
-devices once):
+devices once; and ``rules=``, the ``layers.MeshRules`` of the reference's
+in-step constraints, ``layers.constrain``, which act on ``DTensor``
+activations only, i.e. in the dry run's collective count):
   loss_fn(params, batch)                         (train_* shapes, through
                                                  ``LMArch.make_step``'s
                                                  train_step and autograd)
@@ -253,12 +255,13 @@ def _logits(params: dict, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
 
 
 def _block_apply(p: dict, x: torch.Tensor, cfg: LMConfig, pattern: str,
-                 use_rope: bool, kv_cache=None, cache_len=None, mesh=None):
+                 use_rope: bool, kv_cache=None, cache_len=None, mesh=None,
+                 rules=None):
     pat_id = A.PATTERNS.index(pattern)
     h = L.rms_norm(x, p["norm1"])
     attn_out, new_kv = A.attend(p["attn"], h, cfg.attn_cfg(), pat_id,
                                 use_rope=use_rope, kv_cache=kv_cache,
-                                cache_len=cache_len)
+                                cache_len=cache_len, rules=rules)
     if cfg.post_norms:
         attn_out = L.rms_norm(attn_out, p["norm1_post"])
     x = x + attn_out
@@ -266,7 +269,8 @@ def _block_apply(p: dict, x: torch.Tensor, cfg: LMConfig, pattern: str,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.moe:
         B, S, D = h.shape
-        out, aux = M.moe_apply(p["moe"], h.reshape(B * S, D), cfg.moe, mesh)
+        out, aux = M.moe_apply(p["moe"], h.reshape(B * S, D), cfg.moe, mesh,
+                               rules=rules)
         out = out.reshape(B, S, D)
     else:
         out = L.mlp_apply(p["mlp"], h)
@@ -276,51 +280,63 @@ def _block_apply(p: dict, x: torch.Tensor, cfg: LMConfig, pattern: str,
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig,
-            collect_cache: bool = False, *, mesh=None):
+            collect_cache: bool = False, *, mesh=None, rules=None):
     """tokens (B, S) -> (logits (B, S, V) float32, aux ()) [+ caches: one
     (k, v) pair per group position, each (n_groups, B, S, KV, Dh)].
     ``mesh`` (a ``launch/mesh.MeshShape``) goes to every MoE layer
     (``moe.moe_apply``: expert parallelism where the reference takes it);
-    without a mesh the MoE layers take the dense dispatch."""
+    without a mesh the MoE layers take the dense dispatch.  ``rules``: the
+    reference's constraints, at its sites (the embedding, each layer
+    group's input, the logits)."""
     x = _embed(params, tokens, cfg)
+    x = L.constrain(x, rules, "batch", "seq", "embed")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    caches = None
-    if collect_cache:
-        B, S = tokens.shape
-        shp = (cfg.n_groups, B, S, cfg.n_kv_heads, cfg.head_dim)
-        caches = [(torch.empty(shp, dtype=cfg.dtype, device=x.device),
-                   torch.empty(shp, dtype=cfg.dtype, device=x.device))
-                  for _ in cfg.pattern]
+    # one (k, v) pair per group position, each (n_groups, B, S, KV, Dh),
+    # made at the position's first layer
+    caches = [None] * len(cfg.pattern) if collect_cache else None
     remat = cfg.remat and torch.is_grad_enabled() and not collect_cache
     for g, i, p in layers(params, cfg):
+        if i == 0:
+            # the reference pins its scan carry at each group's start
+            x = L.constrain(x, rules, "batch", "seq", "embed")
         if remat:
             x, a = checkpoint(_layer, p, x, cfg, cfg.pattern[i],
-                              cfg.use_rope_pattern[i], mesh,
+                              cfg.use_rope_pattern[i], mesh, rules,
                               use_reentrant=False)
         else:
             x, (k, v), a = _block_apply(p, x, cfg, cfg.pattern[i],
-                                        cfg.use_rope_pattern[i], mesh=mesh)
+                                        cfg.use_rope_pattern[i], mesh=mesh,
+                                        rules=rules)
             if collect_cache:
+                if g == 0:
+                    caches[i] = (L.stacked_empty(k, cfg.n_groups),
+                                 L.stacked_empty(v, cfg.n_groups))
                 caches[i][0][g] = k
                 caches[i][1][g] = v
         aux = aux + a
-    logits = _logits(params, x, cfg)
+    # vocab-parallel logits, S unsharded (the reference's note: seq and
+    # vocab may both map to the model axis)
+    logits = L.constrain(_logits(params, x, cfg), rules, "batch", None,
+                         "vocab")
     return (logits, aux, caches) if collect_cache else (logits, aux)
 
 
 def _layer(p: dict, x: torch.Tensor, cfg: LMConfig, pattern: str,
-           use_rope: bool, mesh=None):
+           use_rope: bool, mesh=None, rules=None):
     """One layer's (output, aux) — what a rematerialized layer keeps."""
-    x, _, aux = _block_apply(p, x, cfg, pattern, use_rope, mesh=mesh)
+    x, _, aux = _block_apply(p, x, cfg, pattern, use_rope, mesh=mesh,
+                             rules=rules)
     return x, aux
 
 
-def loss_fn(params: dict, batch: dict, cfg: LMConfig, *, mesh=None):
+def loss_fn(params: dict, batch: dict, cfg: LMConfig, *, mesh=None,
+            rules=None):
     """The reference's training loss: (loss, {"nll", "aux"}) — the mean
     token NLL plus ``aux_loss_weight`` x the MoE layers' summed balancing
     loss.  Differentiable; ``LMArch.make_step(cfg, "train")`` takes its
     gradient."""
-    logits, aux = forward(params, batch["tokens"], cfg, mesh=mesh)
+    logits, aux = forward(params, batch["tokens"], cfg, mesh=mesh,
+                          rules=rules)
     nll = L.cross_entropy(logits, batch["labels"])
     return nll + cfg.aux_loss_weight * aux, {"nll": nll, "aux": aux}
 
@@ -352,7 +368,7 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, *,
 
 
 def decode_step(params: dict, caches: list, tokens: torch.Tensor,
-                cache_len, cfg: LMConfig, *, mesh=None):
+                cache_len, cfg: LMConfig, *, mesh=None, rules=None):
     """One decode step: tokens (B,) at position ``cache_len`` (an int or a
     0-d tensor) -> (logits (B, V) float32, caches updated in place).  The
     MoE layers see B tokens: under ``mesh`` they take expert parallelism
@@ -364,15 +380,15 @@ def decode_step(params: dict, caches: list, tokens: torch.Tensor,
         kv = (caches[i][0][g], caches[i][1][g])
         x, _, _ = _block_apply(p, x, cfg, cfg.pattern[i],
                                cfg.use_rope_pattern[i], kv_cache=kv,
-                               cache_len=cache_len, mesh=mesh)
+                               cache_len=cache_len, mesh=mesh, rules=rules)
     return _logits(params, x, cfg)[:, 0], caches
 
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: LMConfig, *,
-            mesh=None):
+            mesh=None, rules=None):
     """Prefill: the full forward, returning logits and caches S long at every
     layer (the reference has no function that places them into
     ``init_cache``'s rings, and neither has the port)."""
     logits, _, caches = forward(params, tokens, cfg, collect_cache=True,
-                                mesh=mesh)
+                                mesh=mesh, rules=rules)
     return logits, caches

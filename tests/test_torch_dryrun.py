@@ -272,6 +272,15 @@ def smoke_config(arch, shape: str):
     return cfg
 
 
+#: the smoke cells whose count stops at an op without a DTensor rule: the
+#: dense MoE dispatch (one token; 4 smoke experts on 16 model shards) and
+#: EGNN's segment sums
+NO_RULE_CELLS = {("llama4-scout-17b-a16e", "long_500k"):
+                 "aten.searchsorted.Tensor",
+                 ("qwen3-moe-235b-a22b", "train_4k"):
+                 "aten.searchsorted.Tensor",
+                 ("egnn", "molecule"): "aten.segment_reduce.default"}
+
 SMOKE_CELLS = [("qwen3-1.7b", "train_4k"), ("qwen3-1.7b", "prefill_32k"),
                ("qwen3-1.7b", "decode_32k"),
                ("qwen3-moe-235b-a22b", "train_4k"),
@@ -288,7 +297,13 @@ def test_lower_cell_runs_on_smoke_configs(name, shape, tmp_path):
     mesh = MESHES["single"]
     rec = dryrun.lower_cell(arch, cell, mesh, "single",
                             cfg_override=lambda cfg: smoke_config(arch, shape))
-    assert rec["ok"] and rec["collectives"] is None
+    assert rec["ok"]
+    if rec["collectives"] is None:      # an op DTensor has no rule for
+        assert rec["collectives_note"] == dryrun.NO_RULE.format(
+            op=NO_RULE_CELLS[name, shape])
+    else:
+        assert rec["collectives"]["total_bytes"] == sum(
+            rec["collectives"][k]["bytes"] for k in dryrun.COLLECTIVES)
     assert rec["argument_bytes"]["total"] > 0
     if name == "wtbc":
         assert rec["flops"] is None and rec["bytes"] is None
@@ -301,6 +316,28 @@ def test_lower_cell_runs_on_smoke_configs(name, shape, tmp_path):
     if arch.family == "lm":
         mf = roofline.lm_model_flops(cfg, LM_SHAPES[shape], cell.kind)
         assert rec["flops"]["global"] > 0.3 * mf
+
+
+def test_a_cell_without_a_collective_count_keeps_its_other_terms():
+    """EGNN's count stops at an op without a DTensor rule: its row keeps
+    compute_s, memory_s, the step time and the roofline fraction, and the
+    table names the op where the collective term would be."""
+    arch = registry.get("egnn")
+    cell = next(c for c in arch.cells() if c.shape == "molecule")
+    rec = dryrun.lower_cell(arch, cell, MESHES["single"], "single",
+                            cfg_override=lambda _: smoke_config(arch,
+                                                                "molecule"))
+    assert rec["collectives"] is None
+    op = rec["collectives_stopped_at"]
+    assert rec["collectives_note"] == dryrun.NO_RULE.format(op=op)
+    row = roofline.reduce_cell(rec, 1e9)
+    assert row.collective_s is None and row.collectives_by == f"no rule: {op}"
+    assert row.step_time() == row.compute_s + row.memory_s
+    assert row.roofline_fraction() == \
+        row.compute_s / max(row.compute_s, row.memory_s)
+    assert row.dominant in ("compute", "memory")
+    assert f"| — | no rule: {op} | **{row.dominant}** | " \
+        f"{row.roofline_fraction():.3f} |" in roofline.markdown_table([row])
 
 
 def test_full_prefill_counts_the_closed_form():
@@ -320,9 +357,12 @@ def test_full_prefill_counts_the_closed_form():
     assert mf == r_roofline.model_flops_for(cell.cell_id, "prefill")
     assert mf <= rec["flops"]["global"] <= 2 * mf
     row = roofline.reduce_cell(rec, mf)
-    assert row.dominant in ("compute", "memory")
+    assert row.dominant in ("compute", "memory", "collective")
     assert row.compute_s == rec["flops"]["per_device"] / mesh_lib.PEAK_FLOPS_BF16
-    assert "—" in roofline.markdown_table([row])
+    assert row.collective_s == \
+        rec["collectives"]["total_bytes"] / mesh_lib.LINK_BW
+    assert f"{row.collective_s:.2e} | torch {torch.__version__} |" in \
+        roofline.markdown_table([row])
 
 
 def test_tabular_retrieval_one_chunk_times_chunks_equals_the_loop():
@@ -368,7 +408,8 @@ def test_dryrun_cli_writes_records_and_the_roofline_reads_them(tmp_path):
                                      "queries_drb_and", "queries_drb_or"))]
     assert rows[0].skipped.startswith("pure full-attention")
     wt = rows[1]
-    assert wt.compute_s is None and wt.memory_s is None and wt.dominant == "-"
+    assert wt.compute_s is None and wt.memory_s is None
+    assert wt.collective_s > 0 and wt.dominant == "collective"
     table = roofline.markdown_table(rows)
     assert "| qwen3-1.7b:long_500k | skip |" in table and "H100" in table
 
@@ -450,7 +491,18 @@ def test_extrapolated_pairs_equal_every_pair_on_a_small_mesh(name, shape,
                             cfg_override=lambda _: cfg)
     assert rec["flops"]["global"] == some.flops
     assert rec["moe"]["pairs"] == 8 and rec["moe"]["shards"] == 4
-    assert rec["collectives"] is None and "psum" in rec["collectives_note"]
+    # EP's psum, one (T_loc, D) all-reduce a MoE layer, from the layout;
+    # the DTensor count holds at least as many of its shape (the attention
+    # output's partial sum, reduced where the layer takes its tokens, and
+    # a train step's backward may add more)
+    psum = rec["moe"]["psum"]
+    assert psum["count"] == cfg.n_layers
+    assert psum["bytes"] == cfg.n_layers * rec["moe"]["psum_bytes_per_layer"]
+    if rec["collectives"] is not None:
+        seen = sum(g["count"] for g in rec["collective_shapes"]
+                   if (g["kind"], g["shape"], g["dtype"]) ==
+                   ("all-reduce", psum["shape"], psum["dtype"]))
+        assert seen >= psum["count"]
 
 
 @pytest.mark.parametrize("name,shape", list(DENSE_RECORDS))
@@ -465,4 +517,6 @@ def test_cells_without_ep_keep_their_records(name, shape):
             (flops, nbytes)
         assert rec["flops"]["per_device"] == flops / mesh.size
         assert "moe" not in rec
-        assert rec["collectives_note"] == dryrun.NO_COLLECTIVES
+        assert rec["collectives_note"] in (dryrun.DTENSOR_COLLECTIVES,
+                                           dryrun.NO_RULE.format(
+                                               op="aten.searchsorted.Tensor"))
