@@ -13,8 +13,9 @@ Run from the repository root on a machine with one NVIDIA GPU:
 Phases (any failure exits non-zero; no phase is caught and ignored, and
 nothing falls back to the CPU):
 
-1. build  — compile the ten CUDA kernels from ``src/repro_torch/csrc`` (one
-   ``nvcc`` per source, all at once); print the card's name and power limit.
+1. build  — compile the eleven CUDA kernels from ``src/repro_torch/csrc``
+   (one ``nvcc`` per source, all at once); print the card's name and power
+   limit.
 2. data   — a quarter of the paper's ALL collection (718,691-word vocabulary,
    Zipf 1.2, mean 633 tokens per document): 86,445 documents, about 55 M
    tokens, drawn from a seed in one vectorized draw; index built on the
@@ -22,20 +23,29 @@ nothing falls back to the CPU):
 3. K1     — ``wavelet_count`` against its plain version on the card: 4,096
    random triples (with lo = hi and hi = n), triples whose endpoints land
    on tile edges of levels 0 and 1 (where the nearer-end rank switches
-   sides), plus every triple of real ranked and mega trips; bitwise.
+   sides), plus every triple of the plain heap (P = 16) and mega loops'
+   trips; bitwise.
 4. K2     — ``beam_loop`` (the mega core's whole loop) against its plain
    loop on the card: four batches of B = 8 (and/or x df bands ii/iii,
    Q = 3 words, k = 10) plus a budgeted batch; every leaf bitwise.
+4b. ``heap_loop`` (the heap core's whole loop at P >= 2) at P = 2, 3, 16
+   and the P = 1 route (``beam_loop`` on the heap's pool) against the plain
+   heap loop on the card, every leaf bitwise with ``padded``: the four
+   batches, budgets of 64 and 9·P pops, a pool that overflows, rows of 2
+   and 6 words (Q buckets 2 and 8).
 5. main path — launch counters reset, then ``warmup`` and ``search`` as a
    user calls them: the heap core at P = 1 and P = 16 and the mega core;
-   the cores agree with each other, two queries agree with a brute-force
-   scoring of every document, executor counts stay flat after warmup, and
-   both kernels were launched.
+   heap P = 1 equals mega on every leaf and P = 16 equals them on the
+   answers, two queries agree with a brute-force scoring of every
+   document, executor counts stay flat after warmup, and every batch was
+   one K1 launch (the root tf) and one search loop: ``beam_loop`` (heap
+   P = 1, mega) or ``heap_loop`` (P = 16).
 6. timings — CUDA-event times per launch of each kernel and of its plain
    version at the main path's shapes, the least time the card could take
    for the same work (bytes at 3.35 TB/s, byte compares at 1,979 TOPS; a
    rank needs the nearer end of its tile, ``near_bytes``), and ms per
-   batch per core.
+   batch per core; ``heap_loop`` at P = 16 on the ``or`` iii batch also
+   cold (after an L2 flush).
 7. DRB aux — the tf bitmaps of WTBC-DRB built on the host for the same
    corpus; build time and bytes beside the index's bytes.
 8. ``drb_walk`` (the whole DRB ``and`` walk in one launch) against the
@@ -129,11 +139,13 @@ nothing falls back to the CPU):
    Each load: no shed, error or timeout; no executor built after warmup
    (at most 4 at the deadline); every distinct query's served row bitwise
    equal to a direct search under the same effective profile; launches
-   per served batch equal a direct batch's (mega K1 + K2, one
+   per served batch equal a direct batch's (K1 + ``beam_loop``, one
    ``drb_or`` / ``drb_walk``, one ``wtbc_locate`` + ``wtbc_decode`` per
    phrase pass); p50/p95/p99, QPS, mean batch, cache hit rate, the
    registry's stage shares, the live ``repro_roofline_achieved_frac``
-   and the device's idle share over a closed loop without cache.  Then
+   and the device's idle share over a closed loop without cache; for the
+   deadline profile the budget it bought, the device stage's p50 and p99
+   beside the deadline, and QPS (F3).  Then
    ``python -m repro_torch.launch.serve --docs 2000 --requests 200
    --max-batch 8 --smoke --snapshot-dir D --save-snapshot``, and again
    from ``D`` alone: both print ``smoke: PASS``, the second without a
@@ -149,7 +161,8 @@ nothing falls back to the CPU):
    batch's ``certified`` is strict against the max of the shards' own
    bounds and its bound covers the candidate the merge dropped, its
    certified slots equal the exact answer's; snippets equal the tokens;
-   each DR batch launches only K1 (no K2), each DRB batch one ``drb_walk``
+   each DR batch one K1 and one ``beam_loop`` (P = 1) or ``heap_loop``
+   (P = 16) per shard, each DRB batch one ``drb_walk``
    or ``drb_or`` per shard, each ``snippets`` call one ``wtbc_decode`` per
    shard holding a hit.  ms per batch, sharded against single, and the
    merge's own device time.  Then a sharded snapshot saved and loaded onto
@@ -236,16 +249,15 @@ nothing falls back to the CPU):
    ``build_sharded`` on the card, and a single index over the same
    documents with the same codes and DRB word set; 64 queries of 4 words
    from ``zipf_real_queries`` on the global df (``or``: over the words
-   within the config's gather of 2,048 documents a shard; DR: the first 8
-   rows, the heap core looping on the host; both listed as ``reduced``),
+   within the config's gather of 2,048 documents a shard, listed as
+   ``reduced``),
    k = 10.  The four methods through
    ``WTBCPaperArch.make_query_fn``: docs, scores and n_found equal the
    single index's under the same cores and idf table, two rows each equal
    a host brute force over the tokens; ms per batch, launches per batch
-   (DR K1 only, DRB one ``drb_walk`` / ``drb_or`` per shard), the idle
-   share of the first DRB batches (traced with device activity only; a DR
-   batch launches about 10^6 kernels, which the profiler reads back in
-   minutes).  Each shard's bytes on the card beside
+   (DR one K1 and one ``beam_loop`` per shard, DRB one ``drb_walk`` /
+   ``drb_or`` per shard), the idle share of each method's first batch
+   (traced with device activity only).  Each shard's bytes on the card beside
    ``abstract_sharded``'s per device, leaf by leaf (names and dtypes
    equal); the fitted (s, c) beside the config's.  K1 at two trips,
    ``drb_walk`` on 8 rows and ``drb_or`` on 2 against their plain versions
@@ -283,8 +295,9 @@ nothing falls back to the CPU):
    ``examples/torch_distributed_retrieval.py`` (8 shards on ``cuda:0``):
    ``run("cuda")`` against ``run("cpu")``, every answer leaf bitwise, at a
    cut size (``EXAMPLE_SEARCH``, ``EXAMPLE_SHARDED``); the launches of the
-   card's runs, counts reset just before (K1, ``drb_walk``, ``drb_or``,
-   ``wtbc_locate`` and ``wtbc_decode`` each at least once).  (b) the dry
+   card's runs, counts reset just before (K1, ``beam_loop``, ``heap_loop``,
+   ``drb_walk``, ``drb_or``, ``wtbc_locate`` and ``wtbc_decode`` each at
+   least once).  (b) the dry
    run's ``wtbc`` cells on a one-axis mesh of phase 19's 4 shards at each
    method's phase-19 batch and k: the all-gather bytes equal what
    ``merge_topk`` took from the shards there (the numel x element size of
@@ -320,6 +333,16 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 INT8_OPS_PER_S = 1.979e15    # H100 SXM data sheet, dense int8
 FP32_OPS_PER_S = 67e12       # H100 SXM data sheet, float32 outside tensor cores
 B, K = 8, 10
+# the leaves two DR cores share: heap P = 1 and mega pop, emit and push
+# alike (every leaf); heap P = 16 emits the same answers exactly
+MEGA_LEAVES = ("docs", "scores", "n_found", "work", "pops", "overflowed",
+               "certified", "score_bound")
+WIDE_LEAVES = ("docs", "scores", "n_found", "overflowed", "certified")
+HEAP_LEAVES = ("docs", "scores", "n_found", "iters", "pops", "overflowed",
+               "padded", "certified", "bound")
+HEAP_PS = (2, 3, 16)     # heap_loop's beam widths in phase 4b (3: buckets
+                         # 1, 2, 3, not all pow2)
+HEAP_SMALL_CAP = 2       # a pool that overflows (the root fills a slot)
 
 
 def log(msg: str) -> None:
@@ -1046,10 +1069,12 @@ def main(argv=None) -> int:
     words_t = torch.from_numpy(ranks).to(dev)
     wmask_t = torch.from_numpy(masks).to(dev)
     idf = engine._idf_table(engine._resolve_measure("tfidf"))
+    # the plain heap loop's trips (on the card the heap core calls K1 only
+    # for the root tf: its trips run inside heap_loop)
     with OpsRecorder() as rec16:
         ranked.topk_dr_batch(idx, words_t, wmask_t, idf, k=K, conjunctive=False,
                              heap_cap=2 * idx.n_docs + 4, beam_width=16,
-                             max_pops=9 * 16)
+                             max_pops=9 * 16, kernel_backend="ref")
     with OpsRecorder() as rec1:
         mega.topk_dr_mega(idx, words_t, wmask_t, idf, k=K, conjunctive=False,
                           cap=idx.n_docs + 2, max_pops=8, kernel_backend="ref")
@@ -1092,6 +1117,12 @@ def main(argv=None) -> int:
         log(f"K2 beam_loop == plain loop: {mode} band {band} budget {budget}: "
             f"pops/row {got.pops.tolist()}, found {got.n_found.tolist()}")
 
+    # ---- 4b. heap_loop and the P = 1 route against the plain heap loop -----
+    t4b = time.perf_counter()
+    heap_err = heap_phase(engine, batches, df_word, bands, idf)
+    t4b = time.perf_counter() - t4b
+    log(f"phase 4b: {t4b:.1f} s")
+
     # ---- 5. the main path ---------------------------------------------------
     backend.reset_launch_counts()
     profiles = [dict(), dict(beam_width=16), dict(mega=True)]
@@ -1116,22 +1147,33 @@ def main(argv=None) -> int:
                                      for k_ in after})
             core_ms[label].append(ms)
             outs[label] = res
-        # a budget is enforced per trip, so P=16 may pop past it: only the
-        # one-pop cores share a budgeted answer
-        for label in ("P=16", "mega") if budget is None else ("mega",):
-            for leaf in ("docs", "scores", "n_found"):
-                check(torch.equal(getattr(outs["P=1"], leaf),
-                                  getattr(outs[label], leaf)),
-                      f"{label} core differs from P=1 on {leaf} ({mode}, "
-                      f"band {band}, budget {budget})")
+        # heap P = 1 and mega pop, emit and push alike: every leaf; P = 16
+        # emits the same answers exactly but pops more (a budget is enforced
+        # per trip, so it may pop past one): its answers when unbudgeted
+        pairs = [("mega", MEGA_LEAVES)]
+        if budget is None:
+            pairs.append(("P=16", WIDE_LEAVES))
+        for label, leaves in pairs:
+            bad = leaves_equal(outs["P=1"], outs[label], leaves)
+            check(not bad, f"{label} core differs from P=1 on {bad} ({mode}, "
+                  f"band {band}, budget {budget})")
         results.append((mode, band, q, budget, outs["P=1"]))
         log(f"main path {mode} band {band} budget {budget}: ms/batch " +
             ", ".join(f"{c} {core_ms[c][-1]:.2f}" for c in core_ms) +
             f"; n_found {outs['P=1'].n_found.tolist()}")
     counts = backend.launch_counts()
     log("main path launches: " + json.dumps(counts))
-    check(counts["wavelet_count"] > 0, "wavelet_count never launched")
-    check(counts["beam_loop"] > 0, "beam_loop never launched")
+    # every DR batch is the whole search in kernels: one K1 (the root tf)
+    # and one search loop, beam_loop (heap P = 1, mega) or heap_loop (P = 16)
+    expect = {"P=1": {"wavelet_count": 1, "beam_loop": 1},
+              "P=16": {"wavelet_count": 1, "heap_loop": 1},
+              "mega": {"wavelet_count": 1, "beam_loop": 1}}
+    for label, per in per_batch.items():
+        for got in per:
+            check({k_: v for k_, v in got.items() if v} == expect[label],
+                  f"{label} batch launched {got}, expected {expect[label]}")
+    for name in ("wavelet_count", "beam_loop", "heap_loop"):
+        check(counts[name] > 0, f"{name} never launched")
     check(engine.stats["traces"] == traces, "executors were built after warmup")
 
     for mode, band, q, budget, res in results:
@@ -1236,6 +1278,9 @@ def main(argv=None) -> int:
                     "bound_by": by, "library_ms": None,
                     "wrapper_ms": k2_call})
 
+    kernels.append(heap_loop_row(idx, wt, mt, idf, counts["heap_loop"]))
+    kernels[-1]["max_abs_err"] = heap_err
+
     for c, v in core_ms.items():
         log(f"core {c}: ms per batch " + ", ".join(f"{x:.2f}" for x in v))
     # how busy the card is on each core's main path (or, band ii batch)
@@ -1247,7 +1292,7 @@ def main(argv=None) -> int:
             f"{wall:.3f} ms wall, idle share {1 - busy / wall:.4f}")
     log("launches per batch: " + json.dumps(per_batch))
 
-    phase_s = {"1-6": time.perf_counter() - t_start}
+    phase_s = {"1-6": time.perf_counter() - t_start, "4b (in 1-6)": t4b}
 
     def timed_phase(name, fn, *a):
         t = time.perf_counter()
@@ -1312,6 +1357,144 @@ def main(argv=None) -> int:
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+def heap_phase(engine, batches, df_word, bands, idf) -> int:
+    """Phase 4b: ``heap_loop`` (P = 2, 3, 16) and the P = 1 route
+    (``beam_loop`` on the heap's pool) against the plain heap loop on the
+    card (``kernel_backend="ref"``), every leaf bitwise, ``padded``
+    included: the four batches, budgets of 64 and 9·P pops, a pool of
+    ``HEAP_SMALL_CAP`` slots that overflows, and rows of 2 and 6 words (Q
+    buckets 2 and 8; the batches are bucket 4).  Returns the largest
+    |difference| of any leaf (0: the check is bitwise)."""
+    import torch
+    from repro_torch.core import ranked
+    from repro_torch.text import corpus as tcorpus
+    idx = engine.idx
+    full = 2 * idx.n_docs + 4
+    cases = [(f"{m} {b}", q, m, P, None, full)
+             for m, b, q in batches for P in (1,) + HEAP_PS]
+    or3 = batches[3][2]
+    cases += [("or iii", or3, "or", P, budget, full)
+              for P in (1,) + HEAP_PS for budget in (64, 9 * P)]
+    cases += [("and ii", batches[0][2], "and", 16, 64, full)]
+    cases += [(f"or ii, cap {HEAP_SMALL_CAP}", batches[1][2], "or", P, None,
+               HEAP_SMALL_CAP) for P in (2, 16)]
+    for nw in (2, 6):
+        for mode, band in (("or", "ii"), ("and", "iii")):
+            q = tcorpus.sample_queries(df_word, bands[band], B, nw,
+                                       seed=SEED + 40 + nw)
+            cases += [(f"{mode} {band}, {nw} words", q, mode, P, None, full)
+                      for P in (3, 16)]
+    overflowed = False
+    for label, q, mode, P, budget, cap in cases:
+        r, m_ = engine._encode_queries(q)
+        wt = torch.from_numpy(r).to(idx.device)
+        mt = torch.from_numpy(m_).to(idx.device)
+        kw = dict(k=K, conjunctive=mode == "and", heap_cap=cap,
+                  max_pops=budget, beam_width=P)
+        got = ranked.topk_dr_batch(idx, wt, mt, idf, **kw)
+        want = ranked.topk_dr_batch(idx, wt, mt, idf, kernel_backend="ref",
+                                    **kw)
+        _sync(idx.device.type)
+        bad = leaves_equal(got, want, HEAP_LEAVES)
+        check(not bad, f"{'beam_loop (heap P = 1)' if P == 1 else 'heap_loop'}"
+              f" differs from the plain heap loop ({label}, P = {P}, budget "
+              f"{budget}, cap {cap}, Q = {wt.shape[1]}): {bad}")
+        overflowed |= cap < full and bool(got.overflowed.any())
+        log(f"heap {'P = 1 route' if P == 1 else 'heap_loop'} == plain loop: "
+            f"{label}, P = {P}, budget {budget}, cap {cap}, Q = "
+            f"{wt.shape[1]}: pops {got.pops.tolist()}, iters "
+            f"{got.iters.tolist()}, padded {got.padded.tolist()}, found "
+            f"{got.n_found.tolist()}, overflowed "
+            f"{int(got.overflowed.sum())}")
+    check(overflowed, f"no row overflowed a pool of {HEAP_SMALL_CAP} slots")
+    log(f"phase 4b: {len(cases)} cases, every leaf bitwise")
+    return 0
+
+
+def heap_loop_row(idx, words, wmask, idf, launches: int, P: int = 16) -> dict:
+    """``heap_loop``'s row of the kernels line: one whole-batch loop at
+    width P (``or``, band iii, B = 8), state reset each time — device ms
+    (the profiler), ms per wrapper call, cold ms (after an L2 flush), the
+    plain loop's ms, and the bound: the descents the kernel needs (each
+    popped multi's count of each valid word, ``descent_bytes``), the pool
+    read once, every pop's and insert's slot, the outputs and the trips'
+    widths, over 3.35 TB/s."""
+    import torch
+    from repro_torch.core import heap as H
+    from repro_torch.core import ranked
+    from repro_torch.kernels import heap_loop as HL
+    Bq, Q = words.shape
+    cap = 2 * idx.n_docs + 4
+    wm = wmask.to(torch.bool)
+    idf_w = torch.where(wm, idf[words.long()], 0.0).to(torch.float32)
+    pool0, _ = ranked.init_search(idx, words, wm, idf_w, k=K,
+                                  conjunctive=False, cap=cap,
+                                  kernel_backend="auto")
+    holder = {}
+
+    def fresh():
+        holder["pool"] = H.Pool(*(t.clone() for t in pool0))
+        holder["st"] = HL.init_state(Bq, K, idx.device)
+
+    def run(kb):
+        holder["out"] = HL.heap_loop(idx, holder["pool"], holder["st"], words,
+                                     wm, idf_w, P=P, k=K, conjunctive=False,
+                                     max_pops=None, kernel_backend=kb)
+
+    def cold_setup():
+        fresh()
+        _flush_l2()
+        torch.cuda._sleep(SLEEP_CYCLES)
+    call = time_cuda(lambda: run("auto"), reps=5, warm=1, setup=fresh)
+    cold = time_cuda(lambda: run("auto"), reps=5, warm=1, setup=cold_setup,
+                     median=True)
+    kms, _ = profile_device(lambda: (fresh(), run("auto")), 3,
+                            "heap_loop_kernel")
+    st, widths = holder["out"]
+    pops, iters = int(st.pops.sum()), int(st.iters.max())
+    inserts = int(holder["pool"].size.sum()) + pops - int(pool0.size.sum())
+    plain = time_cuda(lambda: run("ref"), reps=1, warm=0, setup=fresh)
+    # the descents the kernel makes: the plain loop's, kept where the pop
+    # lane is a multi and the word is valid
+    popped, real_pop = [], H.pop_p
+
+    def pop_spy(*a, **kw):
+        out = real_pop(*a, **kw)
+        popped.append((out[1], out[2], out[4]))
+        return out
+    H.pop_p = pop_spy
+    try:
+        with OpsRecorder() as rec:
+            fresh()
+            run("ref")
+    finally:
+        H.pop_p = real_pop
+    keep = [[], [], []]
+    for (d0, d1, valid), trip in zip(popped, rec.calls):
+        need = ((valid & (d1 - d0 > 1))[:, :, None] & wm[:, None, :])
+        need = need.reshape(-1)
+        for i in range(3):
+            keep[i].append(trip[i][need])
+    nb, ops = descent_bytes(idx, *(torch.cat(x) for x in keep),
+                            distinct_nonempty=True)
+    nb += Bq * cap * 4 + (pops + inserts) * (12 + 4 * Q) + Bq * (K + 1) * 8
+    nb += int(st.iters.sum()) * 4
+    bms, by = bound_ms(nb, ops)
+    log(f"heap_loop (or, band iii, B = {Bq}, P = {P}): kernel {kms:.4f} ms "
+        f"on the device ({call:.4f} ms per wrapper call, cold {cold:.4f} ms),"
+        f" {kms / max(iters, 1) * 1e3:.2f} µs a trip of the longest row "
+        f"({iters} trips, {pops} pops); plain loop {plain:.3f} ms; bound "
+        f"{bms:.6f} ms ({by}: {nb} bytes)")
+    return {"name": "heap_loop", "route": "cuda",
+            "source": "src/repro_torch/csrc/heap_loop.cu",
+            "replaces": "none: the reference's compiled while_loop around "
+                        "K1, src/repro/core/ranked.py:364-427",
+            "launches": launches, "max_abs_err": 0, "ms": kms,
+            "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+            "library_ms": None, "wrapper_ms": call, "cold_ms": cold,
+            "trips": iters, "pops": pops}
 
 
 def drb_phases(engine, cp, batches, kind) -> tuple[list[dict], int]:
@@ -2619,6 +2802,9 @@ def serve_one(eng, name, profile, distinct, *, device: str, open_qps=None
     reg = obs.Registry(enabled=True)
     server = SearchServer(eng, max_batch=SERVE_BATCH, registry=reg)
     server.warmup(distinct, profile)
+    # the us/pop estimate the load's deadline budgets come from (only
+    # unbudgeted batches feed it: the warmup's, not the load's)
+    us_per_pop = eng.us_per_pop
     traces0 = sum(eng.stats["traces"].values())
     workload = loadgen.zipf_workload(distinct, SERVE_REQUESTS, seed=SEED)
     before = backend.launch_counts()
@@ -2675,7 +2861,7 @@ def serve_one(eng, name, profile, distinct, *, device: str, open_qps=None
             check(loop["wtbc_locate"] == loop["wtbc_decode"] >= dispatches,
                   f"{name}: {loop} in {dispatches} batches (one wtbc_locate "
                   "and one wtbc_decode per pass)")
-        elif "heap" not in name:
+        else:
             check(all(loop[k] == dispatches * direct[k] for k in loop),
                   f"{name}: {loop} in {dispatches} batches, a direct batch "
                   f"{direct}")
@@ -2710,6 +2896,7 @@ def serve_one(eng, name, profile, distinct, *, device: str, open_qps=None
                            if k in stages},
            "roofline_achieved_frac": frac[0] if frac else None,
            "launches": loop, "launches_per_batch": per_batch,
+           "us_per_pop": us_per_pop,
            "busy_loop_device_ms": busy_ms, "busy_loop_wall_ms": wall,
            "idle_share": 1.0 - busy_ms / wall if wall == wall else None}
     log(f"serve {name}{'' if open_qps is None else f' open {open_qps:.0f}'}"
@@ -2764,6 +2951,22 @@ def serving_phase(engine, device: str = "cuda") -> dict:
         for name, profile, distinct in serve_profiles(eng, queries, ngrams):
             profiles[name] = serve_one(eng, name, profile, distinct,
                                        device=device)
+        # F3: the deadline, the budget it bought, the device stage, QPS
+        dl = profiles["dr-or-heap-deadline"]
+        stage = dl["stages_ms"].get("device", {})
+        dl["f3"] = {"deadline_ms": DEADLINE_MS, "budgets": dl["budgets"],
+                    "us_per_pop": dl["us_per_pop"],
+                    "device_p50_ms": stage.get("p50_ms"),
+                    "device_p99_ms": stage.get("p99_ms"), "qps": dl["qps"],
+                    "p99_ms": dl["p99_ms"]}
+        p99 = stage.get("p99_ms")
+        under = p99 is not None and p99 <= DEADLINE_MS
+        log(f"F3 heap or at a {DEADLINE_MS} ms deadline: budgets "
+            f"{dl['budgets']} (the estimator at {dl['us_per_pop']:.3f} µs a "
+            f"pop after warmup), device stage p50 {stage.get('p50_ms')} ms, "
+            f"p99 {p99} ms ({'at or under' if under else 'over'} the "
+            f"deadline), QPS {dl['qps']:.1f}, request p99 "
+            f"{dl['p99_ms']:.2f} ms")
         mega_or = serve_profiles(eng, queries, ngrams)[1]
         qps = profiles[mega_or[0]]["qps"] / 2
         profiles["dr-or-mega-open"] = serve_one(
@@ -2930,20 +3133,22 @@ def sharded_phase(engine, cp, batches, single_dr, single_ms,
     counts = backend.launch_counts()
     log("sharded path launches: " + json.dumps(counts))
     if on_card:
+        loop = {"dr P=1": "beam_loop", "dr P=16": "heap_loop"}
         for label in ms:
             for got in launches[label]:
                 if label.startswith("dr "):
-                    check(set(got) == {"wavelet_count"},
-                          f"{label} batch launched {got}: K1 only, no K2")
+                    want = {"wavelet_count": N_SHARDS, loop[label]: N_SHARDS}
+                    check(got == want, f"{label} batch launched {got}: one "
+                          f"K1 and one {loop[label]} per shard")
                 else:
                     check(set(got) <= {"drb_walk", "drb_or"} and
                           sum(got.values()) == N_SHARDS and
                           len(got) == 1,
                           f"{label} batch launched {got}: one drb_walk or "
                           f"drb_or per shard")
-        for k_ in ("wavelet_count", "drb_walk", "drb_or", "wtbc_decode"):
+        for k_ in ("wavelet_count", "beam_loop", "heap_loop", "drb_walk",
+                   "drb_or", "wtbc_decode"):
             check(counts[k_] > 0, f"{k_} never launched on the sharded path")
-        check(counts["beam_loop"] == 0, "the sharded path launched beam_loop")
     check(len(hits_seen) > 1, f"snippet hits on shards {hits_seen} only")
 
     # the budgeted batch: merged certified / bound against the shards' own
@@ -4454,11 +4659,7 @@ def train_phase(device: str = "cuda", small: bool = False) -> dict:
 
 DEPLOY_SHARDS = 4
 DEPLOY_SEED = SEED + 19
-DEPLOY_REPS = 5          # timed repeats of a DRB batch (a DR batch runs once)
-# rows of a DR batch: the heap core loops on the host, one trip a pop of
-# every shard in turn, ≈ 4-5 ms a trip; at B = 64 dr-and took 22 s and dr-or
-# did not finish in 18 minutes on the unrestricted draw (H100, PR 24)
-DEPLOY_DR_B = 8
+DEPLOY_REPS = 5          # timed repeats of each method's batch
 DEPLOY_BRUTE_ROWS = 2
 DR_LEAVES = ("docs", "scores", "n_found", "iters", "pops", "overflowed",
              "certified", "bound")
@@ -4633,11 +4834,9 @@ def deploy_phase(device: str = "cuda", n_docs: int | None = None,
         f"min(docs_per_shard, 2048)); {over} of the {B} rows of the "
         f"unrestricted draw hold a word past it, whose documents past the "
         f"{cap}th on a shard the gather leaves out, and whose DR or pops "
-        "most of each shard's tree",
-        "phase 19 DR batches": f"B = {DEPLOY_DR_B} of {B} (the first rows "
-        "of each draw): the heap core's host loop takes 4-5 ms a trip"}))
-    batches = {"dr-and": q_all[:DEPLOY_DR_B], "dr-or": q_cap[:DEPLOY_DR_B],
-               "drb-and": q_all, "drb-or": q_cap}
+        "most of each shard's tree"}))
+    batches = {"dr-and": q_all, "dr-or": q_cap, "drb-and": q_all,
+               "drb-or": q_cap}
     idf = sh.global_idf
     tfidf = scoring.TfIdf()
 
@@ -4677,11 +4876,8 @@ def deploy_phase(device: str = "cuda", n_docs: int | None = None,
         q = batches[method]
         w, m = encode(q)
         query = arch.make_query_fn(cfg, shape, sh.devices)
-        # a DR batch launches ≈ 10^6 device kernels (hundreds a trip): the
-        # profiler takes minutes to read them back, so only DRB is traced
         (res, launched), first_ms, busy = profiled(
-            lambda: tally.run(query, sh, w, m), device,
-            trace=method.startswith("drb"))
+            lambda: tally.run(query, sh, w, m), device)
         t_check = time.perf_counter()
         want = on_single(method, w, m)
         for leaf in ("docs", "scores", "n_found"):
@@ -4702,23 +4898,20 @@ def deploy_phase(device: str = "cuda", n_docs: int | None = None,
                   f"force: {bd.tolist()} {bs.tolist()} vs {got_d.tolist()} "
                   f"{got_s.tolist()}")
         check_s = time.perf_counter() - t_check
-        ms = [first_ms]
-        if method.startswith("drb"):
-            ms += [wall_ms(lambda: query(sh, w, m), device)[0]
-                   for _ in range(DEPLOY_REPS - 1)]
+        ms = [first_ms] + [wall_ms(lambda: query(sh, w, m), device)[0]
+                           for _ in range(DEPLOY_REPS - 1)]
         row = {"B": len(q), "ms_per_batch": float(np.median(ms)), "ms": ms,
                "launches": launched, "n_found": res.n_found.tolist(),
                "pops": res.pops.tolist(), "device_busy_ms": busy,
                "checks_s": check_s,
                "idle_share": None if busy is None else 1 - busy / first_ms}
         if on_card:
-            expect = {"dr-and": {"wavelet_count"}, "dr-or": {"wavelet_count"},
-                      "drb-and": {"drb_walk"}, "drb-or": {"drb_or"}}[method]
-            check(set(launched) == expect, f"{method} batch launched "
-                  f"{launched}, expected {sorted(expect)} only")
-            if method.startswith("drb"):
-                check(sum(launched.values()) == DEPLOY_SHARDS,
-                      f"{method}: one launch per shard, got {launched}")
+            expect = {"dr-and": ("wavelet_count", "beam_loop"),
+                      "dr-or": ("wavelet_count", "beam_loop"),
+                      "drb-and": ("drb_walk",), "drb-or": ("drb_or",)}[method]
+            want = {name: DEPLOY_SHARDS for name in expect}
+            check(launched == want, f"{method} batch launched {launched}, "
+                  f"expected {want}: one launch of each per shard")
         methods[method] = row
         log(f"deployment {method} (B = {len(q)}, Q = {Q}, k = {k}): == "
             f"single index (docs, scores, n_found) and the host brute force "
@@ -4741,9 +4934,11 @@ def deploy_phase(device: str = "cuda", n_docs: int | None = None,
     wc2, mc2 = (x[:2].contiguous() for x in encode(q_cap))
     idx0, aux0 = sh.idx[0], sh.aux[0]
     idf0 = sh.replicate(idf)[0]
-    with OpsRecorder() as rec:
-        ranked.topk_dr_batch(idx0, w, m, idf0, k=k, conjunctive=False,
-                             heap_cap=2 * cfg.docs_per_shard + 4, max_pops=3)
+    with OpsRecorder() as rec:       # a plain loop's trips (on the card
+        ranked.topk_dr_batch(          # the search calls K1 once)
+            idx0, w, m, idf0, k=k, conjunctive=False,
+            heap_cap=2 * cfg.docs_per_shard + 4, max_pops=3,
+            kernel_backend="ref")
     trip = rec.calls[1]
 
     def k1(t, kb):
@@ -5413,8 +5608,8 @@ def collectives_phase(dep: dict | None, device: str = "cuda") -> dict:
         f"workload {found}; ms per query {dev_se['ms_per_query']} and "
         f"sharded {dev_dr['ms_per_query']}; launches {counts}")
     if device == "cuda":
-        for kname in ("wavelet_count", "drb_walk", "drb_or", "wtbc_locate",
-                      "wtbc_decode"):
+        for kname in ("wavelet_count", "beam_loop", "heap_loop", "drb_walk",
+                      "drb_or", "wtbc_locate", "wtbc_decode"):
             check(counts[kname] > 0, f"the examples launched no {kname}")
     out.update(examples_found=found, ms_per_query=dev_se["ms_per_query"],
                sharded_ms_per_query=dev_dr["ms_per_query"])

@@ -108,6 +108,23 @@ def pop_p(pool: Pool, p: int, enable: torch.Tensor):
             torch.stack(out_1, 1), torch.stack(out_tf, 1), valid)
 
 
+def seg_valid(tf, score, wmask, conjunctive: bool):
+    """A segment is kept when every query word occurs in it (AND) or its
+    score is positive (OR).  ``tf`` (..., Q), ``wmask`` broadcastable."""
+    if conjunctive:
+        return torch.all((tf > 0) | ~wmask, -1) & torch.any(wmask, -1)
+    return score > 0.0
+
+
+def live_rows(pool: Pool, st, k: int, max_pops: int | None):
+    """Rows still searching: fewer than k answers, a non-empty frontier and
+    pops left in the budget.  ``st`` has ``n_out`` and ``pops`` (B,)."""
+    ok = (st.n_out < k) & (pool.size > 0)
+    if max_pops is not None:
+        ok = ok & (st.pops < max_pops)
+    return ok
+
+
 def push_many(pool: Pool, s, d0, d1, tf, enable) -> None:
     """Bulk insert, in place: ``s/d0/d1/enable (B, m)``, ``tf (B, m, Q)``.
 

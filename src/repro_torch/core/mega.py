@@ -21,10 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core import heap as H
-from repro_torch.core.ranked import (DRResult, anytime_finalize, root_tf,
-                                     seg_valid)
-from repro_torch.core.scoring import dot_q
+from repro_torch.core.ranked import DRResult, anytime_finalize, init_search
 from repro_torch.core.wtbc import WTBCIndex
 from repro_torch.kernels import beam_step
 
@@ -33,22 +30,11 @@ def init_state(idx: WTBCIndex, words, wmask, idf_w, *, k: int,
                conjunctive: bool, cap: int,
                kernel_backend: str) -> beam_step.MegaState:
     """Pools holding each row's root segment [0, n_docs) when it is valid,
-    and empty output slots."""
-    B, Q = words.shape
-    dev = words.device
-    tf0 = root_tf(idx, words, wmask, kernel_backend=kernel_backend)
-    score0 = dot_q(tf0, idf_w)
-    pool = H.make_pool(B, cap, Q, dev)
-    zeros = torch.zeros((B, 1), dtype=torch.int32, device=dev)
-    H.push_many(pool, score0[:, None], zeros, zeros + idx.n_docs, tf0[:, None],
-                seg_valid(tf0, score0, wmask, conjunctive)[:, None])
-    zb = torch.zeros(B, dtype=torch.int32, device=dev)
-    return beam_step.MegaState(
-        pool=pool,
-        out_docs=torch.full((B, k + 1), -1, dtype=torch.int32, device=dev),
-        out_scores=torch.full((B, k + 1), H.NEG_INF, dtype=torch.float32,
-                              device=dev),
-        n_out=zb, iters=zb.clone(), pops=zb.clone())
+    and empty output slots (``ranked.init_search``)."""
+    pool, st = init_search(idx, words, wmask, idf_w, k=k,
+                           conjunctive=conjunctive, cap=cap,
+                           kernel_backend=kernel_backend)
+    return beam_step.MegaState(pool, *st[:5])
 
 
 def topk_dr_mega(idx: WTBCIndex, words: torch.Tensor, wmask: torch.Tensor,

@@ -18,15 +18,19 @@ precedes, in the total lex order, everything still pending; the rest are
 pushed back.  The order is total, so the emission sequence is the same for
 every beam width.
 
-**How the port runs the loop.**  The frontier is a pool per row
-(``core/heap.py``).  The trip loop is driven by the host, and every trip
-computes all B rows at the full width P: rows that stopped, and pop lanes
-past a row's live frontier, are masked, so their trips are exact no-ops.
-That lets the host test ``any(live)`` — a device sync — only every
-``_TRIPS_PER_SYNC`` trips.  The reference instead sizes each trip's descent
-to the smallest pow2 bucket >= the widest live frontier of the batch; the
-bucket changes no result, only the pad-waste counter ``padded``, which the
-port computes from the same bucket rule on the device.
+**Where the loop runs.**  The frontier is a pool per row (``core/heap.py``).
+On the card the whole search of a batch is kernels: one ``wavelet_count``
+launch for the root tf, then at P = 1 one ``beam_loop`` launch (heap P = 1
+pops, emits and pushes exactly what the mega core does, so it runs the mega
+core's loop on the heap's pool) and at P >= 2 one ``heap_loop`` launch
+(``kernels/heap_loop.py``).  On the CPU, or with ``kernel_backend="ref"``,
+the plain loop ``heap_loop_ref`` runs the trips from the host, every trip
+over all B rows at the full width P: rows that stopped, and pop lanes past
+a row's live frontier, are masked, so their trips are exact no-ops.  The
+reference sizes each trip's descent to the smallest pow2 bucket >= the
+widest live frontier of the batch; the bucket changes no result, only the
+pad-waste counter ``padded``, which :func:`padded_from_widths` computes
+from each row's live width per trip that both loops record.
 """
 from __future__ import annotations
 
@@ -38,9 +42,8 @@ from repro_torch.core import heap as H
 from repro_torch.core import wtbc
 from repro_torch.core.scoring import dot_q
 from repro_torch.core.wtbc import WTBCIndex
-
-# host syncs of the loop-exit test: one every this many trips
-_TRIPS_PER_SYNC = 16
+from repro_torch.kernels import backend, beam_step
+from repro_torch.kernels import heap_loop as HL
 
 
 class DRResult(NamedTuple):
@@ -55,24 +58,18 @@ class DRResult(NamedTuple):
     bound: torch.Tensor | None = None       # (B,) float32 pending score bound
 
 
-def frontier_buckets(P: int) -> tuple[int, ...]:
-    """Pow2 frontier-width buckets 1, 2, 4, …, capped by (and always
-    including) the configured beam width P."""
-    ws = []
-    w = 1
-    while w < P:
-        ws.append(w)
-        w *= 2
-    ws.append(P)
-    return tuple(ws)
-
-
-def seg_valid(tf, score, wmask, conjunctive: bool):
-    """A segment is kept when every query word occurs in it (AND) or its
-    score is positive (OR).  ``tf`` (..., Q), ``wmask`` broadcastable."""
-    if conjunctive:
-        return torch.all((tf > 0) | ~wmask, -1) & torch.any(wmask, -1)
-    return score > 0.0
+def padded_from_widths(widths: torch.Tensor, P: int) -> torch.Tensor:
+    """The reference's pad-waste counter from the (B, T) live widths of a
+    batch's trips (``min(size, P)`` of a live row, 0 once it stopped): each
+    trip pays, for every live row, its bucket — the smallest pow2 bucket at
+    or above the batch's widest live frontier that trip — less its width:
+    ``padded[b] = sum_t [w[b,t] > 0] * (bucket(max_b w[:,t]) - w[b,t])``."""
+    buckets = torch.tensor(HL.frontier_buckets(P), dtype=torch.int32,
+                           device=widths.device)
+    widest = widths.amax(0)
+    S = buckets[(widest[:, None] > buckets[None, :-1]).sum(1)]
+    return torch.where(widths > 0, S[None, :] - widths, 0).sum(
+        1, dtype=torch.int32)
 
 
 def anytime_finalize(s, d0, d1, out_docs, out_scores, n_out, overflowed, *,
@@ -133,94 +130,20 @@ def root_tf(idx: WTBCIndex, words, wmask, *, kernel_backend: str):
     return tf0.reshape(B, Q) * wmask
 
 
-class _State(NamedTuple):
-    out_docs: torch.Tensor     # (B, k + 1) — slot k is a trash slot
-    out_scores: torch.Tensor   # (B, k + 1)
-    n_out: torch.Tensor        # (B,)
-    iters: torch.Tensor
-    pops: torch.Tensor
-    padded: torch.Tensor
-
-
-def live_rows(pool: H.Pool, st, k: int, max_pops: int | None):
-    """Rows still searching: fewer than k answers, a non-empty frontier and
-    pops left in the budget.  ``st`` has ``n_out`` and ``pops`` (B,)."""
-    ok = (st.n_out < k) & (pool.size > 0)
-    if max_pops is not None:
-        ok = ok & (st.pops < max_pops)
-    return ok
-
-
-def _trip(idx, pool: H.Pool, st: _State, words, wmask, idf_w, *, P: int,
-          buckets: torch.Tensor, k: int, conjunctive: bool,
-          max_pops: int | None, kernel_backend: str) -> _State:
-    """One beam trip of every row at width P (in place on ``pool``)."""
+def init_search(idx: WTBCIndex, words, wmask, idf_w, *, k: int,
+                conjunctive: bool, cap: int, kernel_backend: str
+                ) -> tuple[H.Pool, HL.HeapState]:
+    """Pools of ``cap`` slots holding each row's root segment [0, n_docs)
+    when it is valid, empty outputs and zero counters."""
     B, Q = words.shape
-    live = live_rows(pool, st, k, max_pops)
-    # the reference's scalar bucket: smallest pow2 bucket >= the widest live
-    # frontier of the batch (feeds only the pad-waste counter)
-    n_live = torch.where(live, pool.size.clamp(max=P), 0).amax()
-    S_b = buckets[(n_live > buckets[:-1]).sum()]
-
-    s_p, d0, d1, tf, valid = H.pop_p(pool, P, live)
-    single = valid & ((d1 - d0) == 1)
-    multi = valid & ~single
-
-    # exact-emission bound: the pending top after the pops and every popped
-    # multi (whose descendants it strictly bounds) — a popped singleton that
-    # lex-beats all of them is the globally next answer, ties included
-    occupied = pool.scores > H.NEG_INF
-    jt = H.lex_argmax(pool.scores, pool.d0, pool.d1, occupied)
-    hv = occupied.any(1)
-    cs = torch.cat([s_p, H.take(pool.scores, jt)[:, None]], 1)
-    c0 = torch.cat([d0, H.take(pool.d0, jt)[:, None]], 1)
-    c1 = torch.cat([d1, H.take(pool.d1, jt)[:, None]], 1)
-    cv = torch.cat([multi, hv[:, None]], 1)
-    j = H.lex_argmax(cs, c0, c1, cv)
-    emit = single & (~cv.any(1, keepdim=True) | H.lex_gt(
-        s_p, d0, d1, H.take(cs, j)[:, None], H.take(c0, j)[:, None],
-        H.take(c1, j)[:, None]))
-    slot = st.n_out[:, None] + torch.cumsum(emit.to(torch.int32), 1) - 1
-    write = emit & (slot < k)
-    at = torch.where(write, slot, k).long()
-    out_docs = st.out_docs.scatter(1, at, torch.where(
-        write, d0, st.out_docs.gather(1, at)))
-    out_scores = st.out_scores.scatter(1, at, torch.where(
-        write, s_p, st.out_scores.gather(1, at)))
-    n_out = torch.clamp(st.n_out + emit.sum(1, dtype=torch.int32), max=k)
-
-    # split every popped multi at the doc boundary nearest its middle; all
-    # P×Q left-child tfs in ONE batched descent (masked lanes compute
-    # degenerate extents and are discarded by the push enables)
-    mid = torch.div(d0 + d1, 2, rounding_mode="floor").to(torch.int32)
-    lo1, hi1 = wtbc.segment_extent(idx, d0, mid)
-    tf1 = wtbc.count_range_batch(
-        idx, words[:, None, :].expand(B, P, Q).reshape(-1),
-        lo1[:, :, None].expand(B, P, Q).reshape(-1),
-        hi1[:, :, None].expand(B, P, Q).reshape(-1),
-        kernel_backend=kernel_backend).reshape(B, P, Q) * wmask[:, None, :]
-    tf2 = tf - tf1
-    idf3 = idf_w[:, None, :]
-    s1, s2 = dot_q(tf1, idf3), dot_q(tf2, idf3)
-    wm3 = wmask[:, None, :]
-    # bulk reinsert, parent-major (left, right, unemitted single); with P=1 a
-    # popped singleton is the pending maximum and always emitted, so the
-    # re-push lane is dropped there
-    lanes = [(s1, d0, mid, tf1, multi & seg_valid(tf1, s1, wm3, conjunctive)),
-             (s2, mid, d1, tf2, multi & seg_valid(tf2, s2, wm3, conjunctive))]
-    if P > 1:
-        lanes.append((s_p, d0, d1, tf, single & ~emit))
-    W = len(lanes)
-    H.push_many(pool,
-                torch.stack([x[0] for x in lanes], 2).reshape(B, P * W),
-                torch.stack([x[1] for x in lanes], 2).reshape(B, P * W),
-                torch.stack([x[2] for x in lanes], 2).reshape(B, P * W),
-                torch.stack([x[3] for x in lanes], 2).reshape(B, P * W, Q),
-                torch.stack([x[4] for x in lanes], 2).reshape(B, P * W))
-    nv = valid.sum(1, dtype=torch.int32)
-    live_i = live.to(torch.int32)
-    return _State(out_docs, out_scores, n_out, st.iters + live_i,
-                  st.pops + nv, st.padded + live_i * (S_b - nv))
+    dev = words.device
+    tf0 = root_tf(idx, words, wmask, kernel_backend=kernel_backend)
+    score0 = dot_q(tf0, idf_w)
+    pool = H.make_pool(B, cap, Q, dev)
+    zeros = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+    H.push_many(pool, score0[:, None], zeros, zeros + idx.n_docs, tf0[:, None],
+                H.seg_valid(tf0, score0, wmask, conjunctive)[:, None])
+    return pool, HL.init_state(B, k, dev)
 
 
 def topk_dr_batch(idx: WTBCIndex, words: torch.Tensor, wmask: torch.Tensor,
@@ -237,36 +160,31 @@ def topk_dr_batch(idx: WTBCIndex, words: torch.Tensor, wmask: torch.Tensor,
     have been popped (checked per trip, so with P > 1 it may overshoot by
     < P) and returns what it emitted, harvested and certified.  Every result
     leaf is the reference ``topk_dr_batch``'s at the same (B, Q)."""
-    B, Q = words.shape
     P = int(beam_width)
-    dev = words.device
     wmask = wmask.to(torch.bool)
     idf_w = torch.where(wmask, idf[words.long()], 0.0).to(torch.float32)
-
-    tf0 = root_tf(idx, words, wmask, kernel_backend=kernel_backend)
-    score0 = dot_q(tf0, idf_w)
-    pool = H.make_pool(B, heap_cap, Q, dev)
-    zeros = torch.zeros((B, 1), dtype=torch.int32, device=dev)
-    H.push_many(pool, score0[:, None], zeros, zeros + idx.n_docs, tf0[:, None],
-                seg_valid(tf0, score0, wmask, conjunctive)[:, None])
-    zb = torch.zeros(B, dtype=torch.int32, device=dev)
-    st = _State(torch.full((B, k + 1), -1, dtype=torch.int32, device=dev),
-                torch.full((B, k + 1), H.NEG_INF, dtype=torch.float32,
-                           device=dev),
-                zb, zb, zb, zb)
-    buckets = torch.tensor(frontier_buckets(P), dtype=torch.int32, device=dev)
-    kw = dict(P=P, buckets=buckets, k=k, conjunctive=conjunctive,
-              max_pops=max_pops, kernel_backend=kernel_backend)
-    while bool(live_rows(pool, st, k, max_pops).any()):
-        for _ in range(_TRIPS_PER_SYNC):
-            st = _trip(idx, pool, st, words, wmask, idf_w, **kw)
+    pool, st = init_search(idx, words, wmask, idf_w, k=k,
+                           conjunctive=conjunctive, cap=heap_cap,
+                           kernel_backend=kernel_backend)
+    kw = dict(k=k, conjunctive=conjunctive, max_pops=max_pops,
+              kernel_backend=kernel_backend)
+    if P == 1 and backend.use_kernel(words, kernel_backend):
+        # heap P = 1 pops, emits and pushes what the mega core does (every
+        # leaf; padded is 0): its loop updates the pool and state in place
+        beam_step.beam_loop(idx, beam_step.MegaState(pool, *st[:5]), words,
+                            wmask, idf_w, **kw)
+        padded = st.padded
+    else:
+        st, widths = HL.heap_loop(idx, pool, st, words, wmask, idf_w, P=P,
+                                  **kw)
+        padded = padded_from_widths(widths, P)
     cap = pool.cap
     out_docs, out_scores, n_out, certified, bound = anytime_finalize(
         pool.scores[:, :cap], pool.d0[:, :cap], pool.d1[:, :cap],
         st.out_docs, st.out_scores, st.n_out, pool.overflowed, k=k,
         harvest=max_pops is not None)
     return DRResult(out_docs[:, :k], out_scores[:, :k], n_out, st.iters,
-                    st.pops, pool.overflowed, st.padded, certified, bound)
+                    st.pops, pool.overflowed, padded, certified, bound)
 
 
 def topk_dr(idx: WTBCIndex, words, wmask, idf, **kw) -> DRResult:
@@ -299,7 +217,7 @@ def topk_bruteforce(idx: WTBCIndex, words, wmask, idf, *, k: int,
             kernel_backend=kernel_backend).reshape(m, Q))
     tf = torch.cat(tfs) * wmask
     s = dot_q(tf, idf_w)
-    ok = seg_valid(tf, s, wmask, conjunctive)
+    ok = H.seg_valid(tf, s, wmask, conjunctive)
     s = torch.where(ok, s, H.NEG_INF)
     order = torch.sort(s, descending=True, stable=True).indices[:k]
     top_s = s[order]

@@ -33,18 +33,12 @@
 //           summary in place (the new key against the best, its bit out of
 //           the free mask, the chunk's two lowest free slots from the mask).
 //
-// Per-chunk summaries.  The row's slots fall in chunks of 256; a chunk's
-// summary is its lex-greatest live key (s, d0, d1, idx), its two lowest free
-// slots below cap and a bit per slot (set: free), 56 bytes a chunk.  They
-// are kept in dynamic shared memory, sized from cap at launch, while they
-// fit one block's opt-in (about 1 M slots on an H100); past it, in a
-// per-row region of a global scratch (the same layout; it stays in L2 and
-// the row's block alone touches it).  The two are one kernel body,
-// instantiated twice, so both keep every leaf bitwise.  A per-row high-water
-// mark hw (every slot >= hw is free) bounds the pop to the chunks that hold
-// slots [0, hw + 1], so the lowest two free slots — the holes below hw, then
-// hw, hw + 1 — are exact, and the pool stays slot for slot equal to the
-// plain loop's.
+// Per-chunk summaries (pool.cuh, shared with heap_loop.cu).  The row's
+// slots fall in chunks of 256, each summarised by its best live key, its two
+// lowest free slots and a free bit per slot, in dynamic shared memory while
+// they fit one block's opt-in (about 1 M slots on an H100), else in a global
+// scratch; a high-water mark bounds the pop to the chunks in use, and the
+// pool stays slot for slot equal to the plain loop's.
 //
 // The pools are the port's core/heap.py Pool layout: rows of cap + 1 slots,
 // the last one a scratch slot of the plain bulk insert that the kernel never
@@ -64,142 +58,20 @@
 #include <climits>
 #include <math_constants.h>
 
+#include "pool.cuh"
 #include "wtbc_descent.cuh"
 
 namespace {
+
+using pool::kChunk;
+using pool::kFull;
+using pool::Key;
+using pool::precedes;
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kHelper = kWarps - 1;       // re-summarises during the descent
 constexpr int kMaxQ = 64;
-constexpr int kChunk = 256;               // slots per summary
-constexpr int kSlotsPerLane = kChunk / 32;
-constexpr int kMaskWords = kChunk / 32;
-// s, d0, d1, idx, f1, f2 and the chunk's free-slot bit mask
-constexpr int kSummaryInts = 6 + kMaskWords;
-constexpr int kSummaryBytes = 4 * kSummaryInts;
-constexpr unsigned kFull = 0xffffffffu;
-
-struct Key {
-  float s;
-  int d0, d1, idx;  // idx < 0: no live slot seen
-};
-
-__device__ __forceinline__ bool precedes(const Key& a, const Key& b) {
-  if (a.idx < 0) return false;
-  if (b.idx < 0) return true;
-  if (a.s != b.s) return a.s > b.s;
-  if (a.d0 != b.d0) return a.d0 < b.d0;
-  if (a.d1 != b.d1) return a.d1 > b.d1;
-  return a.idx < b.idx;
-}
-
-// (a1, a2) <- the two lowest of {a1, a2, b1, b2}; pairs ascending and
-// disjoint, INT_MAX for "none".
-__device__ __forceinline__ void merge_low2(int& a1, int& a2, int b1, int b2) {
-  const int lo = min(a1, b1);
-  const int hi = a1 < b1 ? min(a2, b1) : min(a1, b2);
-  a1 = lo;
-  a2 = hi;
-}
-
-// All-lanes reduction of a key and a free pair across the warp.
-__device__ __forceinline__ void warp_reduce(Key& best, int& f1, int& f2) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const Key other = {__shfl_xor_sync(kFull, best.s, o),
-                       __shfl_xor_sync(kFull, best.d0, o),
-                       __shfl_xor_sync(kFull, best.d1, o),
-                       __shfl_xor_sync(kFull, best.idx, o)};
-    if (precedes(other, best)) best = other;
-    merge_low2(f1, f2, __shfl_xor_sync(kFull, f1, o),
-               __shfl_xor_sync(kFull, f2, o));
-  }
-}
-
-// The chunk summaries, structure of arrays (in dynamic shared memory, or in
-// the row's region of the global scratch): the best live key, the two
-// lowest free slots, and a bit per slot (set: free).
-struct Summaries {
-  float* s;
-  int *d0, *d1, *idx, *f1, *f2;
-  uint32_t* free;  // kMaskWords per chunk
-};
-
-// The two lowest free slots of chunk ch from its bit mask (INT_MAX for
-// none); every lane returns them.
-__device__ __forceinline__ void mask_low2(const Summaries& sm, int ch, int& f1,
-                                          int& f2) {
-  const int lane = threadIdx.x & 31;
-  uint32_t w = lane < kMaskWords ? sm.free[ch * kMaskWords + lane] : 0u;
-  f1 = f2 = INT_MAX;
-  unsigned nz = __ballot_sync(kFull, w != 0u);
-  if (!nz) return;
-  int l = __ffs(nz) - 1;
-  f1 = ch * kChunk + l * 32 + __ffs(__shfl_sync(kFull, w, l)) - 1;
-  if (lane == l) w &= w - 1u;  // drop that bit
-  nz = __ballot_sync(kFull, w != 0u);
-  if (!nz) return;
-  l = __ffs(nz) - 1;
-  f2 = ch * kChunk + l * 32 + __ffs(__shfl_sync(kFull, w, l)) - 1;
-}
-
-// One warp summarises chunk ch: each lane issues its 8 slots' loads of the
-// three arrays at once, then the warp reduces.  Lane 0 writes the summary
-// and the free mask; every lane gets the chunk's live count and highest
-// live slot.
-__device__ __forceinline__ void warp_summarise(const Summaries& sm, int ch,
-                                               const float* ps,
-                                               const int32_t* p0,
-                                               const int32_t* p1, int cap,
-                                               int* live = nullptr,
-                                               int* top = nullptr) {
-  const int lane = threadIdx.x & 31;
-  float s[kSlotsPerLane];
-  int a[kSlotsPerLane], b[kSlotsPerLane];
-#pragma unroll
-  for (int j = 0; j < kSlotsPerLane; ++j) {
-    const int i = ch * kChunk + j * 32 + lane;
-    const bool in = i < cap;
-    s[j] = in ? ps[i] : -CUDART_INF_F;
-    a[j] = in ? p0[i] : 0;
-    b[j] = in ? p1[i] : 0;
-  }
-  Key best = {-CUDART_INF_F, 0, 0, -1};
-  int f1 = INT_MAX, f2 = INT_MAX, cnt = 0, hi = -1;
-#pragma unroll
-  for (int j = 0; j < kSlotsPerLane; ++j) {  // a lane's slots ascend in j
-    const int i = ch * kChunk + j * 32 + lane;
-    const unsigned fm = __ballot_sync(kFull, i < cap && !(s[j] > -CUDART_INF_F));
-    if (lane == 0) sm.free[ch * kMaskWords + j] = fm;
-    if (i >= cap) continue;
-    if (s[j] > -CUDART_INF_F) {
-      const Key c = {s[j], a[j], b[j], i};
-      if (precedes(c, best)) best = c;
-      ++cnt;
-      hi = i;
-    } else if (f1 == INT_MAX) {
-      f1 = i;
-    } else if (f2 == INT_MAX) {
-      f2 = i;
-    }
-  }
-  warp_reduce(best, f1, f2);
-  if (lane == 0) {
-    sm.s[ch] = best.s;
-    sm.d0[ch] = best.d0;
-    sm.d1[ch] = best.d1;
-    sm.idx[ch] = best.idx;
-    sm.f1[ch] = f1;
-    sm.f2[ch] = f2;
-  }
-  if (live) *live = wtbc::warp_sum(cnt);
-  if (top) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) hi = max(hi, __shfl_xor_sync(kFull, hi, o));
-    *top = hi;
-  }
-}
 
 // kShared: the summaries in dynamic shared memory; else in the row's
 // kSummaryInts * n_chunks ints of `summaries`.
@@ -230,11 +102,8 @@ beam_loop_kernel(wtbc::Levels lv, wtbc::WordTables t,
   extern __shared__ int4 dyn[];
   int* const dw =
       kShared ? reinterpret_cast<int*>(dyn)
-              : summaries + (size_t)row * kSummaryInts * n_chunks;
-  const Summaries sm = {reinterpret_cast<float*>(dw), dw + n_chunks,
-                        dw + 2 * n_chunks, dw + 3 * n_chunks,
-                        dw + 4 * n_chunks, dw + 5 * n_chunks,
-                        reinterpret_cast<uint32_t*>(dw + 6 * n_chunks)};
+              : summaries + (size_t)row * pool::kSummaryInts * n_chunks;
+  const pool::Summaries sm = pool::summaries_at(dw, n_chunks);
   __shared__ wtbc::WordPath path[kMaxQ];
   __shared__ int wm_s[kMaxQ];
   __shared__ float iw_s[kMaxQ];
@@ -255,34 +124,15 @@ beam_loop_kernel(wtbc::Levels lv, wtbc::WordTables t,
     iw_s[q] = __ldg(idf_w + (size_t)row * Q + q);
   }
   __syncthreads();
-  {
-    int live = 0, top = -1;
-    for (int ch = warp; ch < n_chunks; ch += kWarps) {
-      int c, h;
-      warp_summarise(sm, ch, ps, p0, p1, cap, &c, &h);
-      live += c;
-      top = max(top, h);
-    }
-    if (lane == 0) {
-      warp_live[warp] = live;
-      warp_top[warp] = top;
-    }
-    __syncthreads();
-    if (tid == 0) {
-      int h = -1, c = 0;
-      for (int w = 0; w < kWarps; ++w) {
-        h = max(h, warp_top[w]);
-        c += warp_live[w];
-      }
-      sh_hw = h + 1;
-      sh_live = c;
-      sh_n_out = n_out_g[row];
-      sh_iters = iters_g[row];
-      sh_pops = pops_g[row];
-      sh_ovf = ovf_g[row];
-    }
-    __syncthreads();
+  pool::block_summarise<kWarps>(sm, n_chunks, ps, p0, p1, cap, warp_live,
+                                warp_top, &sh_hw, &sh_live);
+  if (tid == 0) {
+    sh_n_out = n_out_g[row];
+    sh_iters = iters_g[row];
+    sh_pops = pops_g[row];
+    sh_ovf = ovf_g[row];
   }
+  __syncthreads();
 
   for (int trip = 0;; ++trip) {
     // ---- pop and bookkeeping (warp 0)
@@ -296,16 +146,10 @@ beam_loop_kernel(wtbc::Levels lv, wtbc::WordTables t,
           if (bad) status_g[row] = 1;
         }
       } else {
-        const int hw = sh_hw;
-        const int active = min(n_chunks, (hw + 1) / kChunk + 1);
-        Key best = {-CUDART_INF_F, 0, 0, -1};
-        int f1 = INT_MAX, f2 = INT_MAX;
-        for (int ch = lane; ch < active; ch += 32) {
-          const Key c = {sm.s[ch], sm.d0[ch], sm.d1[ch], sm.idx[ch]};
-          if (precedes(c, best)) best = c;
-          merge_low2(f1, f2, sm.f1[ch], sm.f2[ch]);
-        }
-        warp_reduce(best, f1, f2);
+        Key best;
+        int f1, f2;
+        pool::warp_best(sm, pool::active_chunks(sh_hw, n_chunks), best, f1,
+                        f2);
         const int j = best.idx;  // live > 0, so a slot was found
         const bool single = (best.d1 - best.d0) == 1;
         const int mid = (best.d0 + best.d1) / 2;  // d0, d1 >= 0: floor
@@ -357,7 +201,8 @@ beam_loop_kernel(wtbc::Levels lv, wtbc::WordTables t,
                               : 0;
         if (lane == 0) leaf[e][q] = r;
       }
-      if (warp == kHelper) warp_summarise(sm, sh_j / kChunk, ps, p0, p1, cap);
+      if (warp == kHelper)
+        pool::warp_summarise(sm, sh_j / kChunk, ps, p0, p1, cap);
       __syncthreads();
 
       // ---- score (warp 0: lane q forms word q's products, every lane adds
@@ -405,16 +250,7 @@ beam_loop_kernel(wtbc::Levels lv, wtbc::WordTables t,
             p0[slot] = d0s[c];
             p1[slot] = d1s[c];
             // the chunk's summary: the new key, one free slot fewer
-            const int ch = slot / kChunk;
-            const Key key = {ss[c], d0s[c], d1s[c], slot};
-            const Key cur = {sm.s[ch], sm.d0[ch], sm.d1[ch], sm.idx[ch]};
-            if (precedes(key, cur)) {
-              sm.s[ch] = key.s;
-              sm.d0[ch] = key.d0;
-              sm.d1[ch] = key.d1;
-              sm.idx[ch] = slot;
-            }
-            sm.free[slot / 32] &= ~(1u << (slot & 31));
+            pool::note_insert(sm, {ss[c], d0s[c], d1s[c], slot});
             sh_slot[c] = slot;
             ++ci;
             sh_live += 1;
@@ -434,7 +270,7 @@ beam_loop_kernel(wtbc::Levels lv, wtbc::WordTables t,
           const int ch = slot / kChunk;
           if (c == 1 && sh_slot[0] >= 0 && sh_slot[0] / kChunk == ch) continue;
           int g1, g2;
-          mask_low2(sm, ch, g1, g2);
+          pool::mask_low2(sm, ch, g1, g2);
           if (lane == 0) {
             sm.f1[ch] = g1;
             sm.f2[ch] = g2;
@@ -444,7 +280,7 @@ beam_loop_kernel(wtbc::Levels lv, wtbc::WordTables t,
       }
     } else if (warp == 0) {
       // a singleton pop touched one chunk
-      warp_summarise(sm, sh_j / kChunk, ps, p0, p1, cap);
+      pool::warp_summarise(sm, sh_j / kChunk, ps, p0, p1, cap);
       __syncwarp();
     }
   }
@@ -479,25 +315,17 @@ extern "C" int beam_loop(const void* d0, const void* c0, int nb0, int len0,
   // the summaries: 56 bytes per chunk of 256 slots, in dynamic shared memory
   // while they fit the opt-in, else in the caller's scratch of
   // b * kSummaryInts * n_chunks ints
-  const size_t smem = (size_t)kSummaryBytes * ((cap + kChunk - 1) / kChunk);
-  int dev = 0, optin = 0;
-  cudaFuncAttributes attr;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  cudaError_t e = cudaFuncGetAttributes(&attr, beam_loop_kernel<true>);
+  bool in_shared = false;
+  size_t smem = 0;
+  const cudaError_t e = pool::plan_summaries(
+      beam_loop_kernel<true>, beam_loop_kernel<false>, 0, cap, &in_shared,
+      &smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const bool in_shared = smem + attr.sharedSizeBytes <= (size_t)optin;
-  if (in_shared && smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(beam_loop_kernel<true>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
   const wtbc::Levels lv = wtbc::make_levels(d0, c0, nb0, len0, d1, c1, nb1,
                                             len1, d2, c2, nb2, len2, block);
   const wtbc::WordTables t = wtbc::make_tables(cw, cw_len, node_off, base_rank);
   auto kernel = in_shared ? beam_loop_kernel<true> : beam_loop_kernel<false>;
-  kernel<<<b, kThreads, in_shared ? smem : 0,
+  kernel<<<b, kThreads, smem,
            static_cast<cudaStream_t>(stream)>>>(
       lv, t, static_cast<const int32_t*>(sep_pos), n, n_docs,
       static_cast<const int32_t*>(words), static_cast<const int32_t*>(wmask),

@@ -157,6 +157,17 @@ BEAM_LOOP = CudaKernel(
     + (_P, _P, _P, _P, _P)            # n_out, iters, pops, overflowed, status
     + (_I, _I, _I, _I, _P, _P))       # conjunctive, max_pops, max_trips, B,
                                       # summaries, stream
+HEAP_LOOP = CudaKernel(
+    "heap_loop", "heap_loop.cu",
+    _LEVEL_ARGS + _TABLE_ARGS
+    + (_P, _I, _I)                    # sep_pos, n, n_docs
+    + (_P, _P, _P, _I, _I)            # words, wmask, idf_w, Q, P
+    + (_P, _P, _P, _P, _P, _I)        # pool scores/d0/d1/tf/size, cap
+    + (_P, _P, _I)                    # out_docs, out_scores, k
+    + (_P, _P, _P, _P, _P, _P)        # n_out, iters, pops, overflowed,
+                                      # status, widths
+    + (_I, _I, _I, _I, _P, _P))       # conjunctive, max_pops, max_trips, B,
+                                      # summaries, stream
 # one bytemap level: (data, counts, n_blocks, length, block)
 _BYTEMAP_ARGS = (_P, _P, _I, _I, _I)
 BYTE_RANK = CudaKernel(
@@ -208,8 +219,9 @@ WTBC_LOCATE = CudaKernel(
     "wtbc_locate", "wtbc_locate.cu",
     _LEVEL_ARGS + _TABLE_ARGS
     + (_P, _P, _P, _I, _P))           # words, js, out, M, stream
-KERNELS = (WAVELET_COUNT, BEAM_LOOP, BITMAP_RANK1, BYTE_RANK, SEGMENT_TF,
-           SCORED_TOPK, DRB_WALK, DRB_OR, WTBC_DECODE, WTBC_LOCATE)
+KERNELS = (WAVELET_COUNT, BEAM_LOOP, HEAP_LOOP, BITMAP_RANK1, BYTE_RANK,
+           SEGMENT_TF, SCORED_TOPK, DRB_WALK, DRB_OR, WTBC_DECODE,
+           WTBC_LOCATE)
 
 
 def launch_counts() -> dict[str, int]:

@@ -22,7 +22,6 @@ import torch
 
 from repro_torch.core import heap as H
 from repro_torch.core import wtbc
-from repro_torch.core.ranked import live_rows, seg_valid
 from repro_torch.core.scoring import dot_q
 from repro_torch.kernels import backend
 from repro_torch.kernels.wavelet_descent import level_args, table_args
@@ -60,7 +59,7 @@ def mega_trip(idx, st: MegaState, words, wmask, idf_w, *, k: int,
     B, Q = words.shape
     row = torch.arange(B, device=words.device)
     s_p, d0, d1, tf, valid = (x[:, 0] for x in H.pop_p(
-        st.pool, 1, live_rows(st.pool, st, k, max_pops)))
+        st.pool, 1, H.live_rows(st.pool, st, k, max_pops)))
     single = valid & ((d1 - d0) == 1)
     multi = valid & ~single
     slot = torch.where(single, st.n_out, k).long()   # live rows: n_out < k
@@ -78,9 +77,9 @@ def mega_trip(idx, st: MegaState, words, wmask, idf_w, *, k: int,
     s1, s2 = dot_q(tf1, idf_w), dot_q(tf2, idf_w)
     H.push_many(st.pool, torch.stack([s1, s2], 1), torch.stack([d0, mid], 1),
                 torch.stack([mid, d1], 1), torch.stack([tf1, tf2], 1),
-                torch.stack([multi & seg_valid(tf1, s1, wmask, conjunctive),
-                             multi & seg_valid(tf2, s2, wmask, conjunctive)],
-                            1))
+                torch.stack(
+                    [multi & H.seg_valid(tf1, s1, wmask, conjunctive),
+                     multi & H.seg_valid(tf2, s2, wmask, conjunctive)], 1))
     n = valid.to(torch.int32)
     return st._replace(n_out=st.n_out + single.to(torch.int32),
                        iters=st.iters + n, pops=st.pops + n)
@@ -91,7 +90,7 @@ def beam_loop_ref(idx, st: MegaState, words, wmask, idf_w, *, k: int,
     """The plain version: trips driven from the host until no row is live.
     Its descents run the plain ``wavelet_count`` too, so a comparison on the
     card holds the kernel against plain code end to end."""
-    while bool(live_rows(st.pool, st, k, max_pops).any()):
+    while bool(H.live_rows(st.pool, st, k, max_pops).any()):
         for _ in range(_TRIPS_PER_SYNC):
             st = mega_trip(idx, st, words, wmask, idf_w, k=k,
                            conjunctive=conjunctive, max_pops=max_pops,
