@@ -342,6 +342,8 @@ HEAP_LEAVES = ("docs", "scores", "n_found", "iters", "pops", "overflowed",
                "padded", "certified", "bound")
 HEAP_PS = (2, 3, 16)     # heap_loop's beam widths in phase 4b (3: buckets
                          # 1, 2, 3, not all pow2)
+HEAP_WIDE_PS = (32, 64)  # and past one warp's 32 lanes (the block-wide
+                         # pop, emission and push scans)
 HEAP_SMALL_CAP = 2       # a pool that overflows (the root fills a slot)
 
 
@@ -1360,7 +1362,7 @@ def main(argv=None) -> int:
 
 
 def heap_phase(engine, batches, df_word, bands, idf) -> int:
-    """Phase 4b: ``heap_loop`` (P = 2, 3, 16) and the P = 1 route
+    """Phase 4b: ``heap_loop`` (P = 2, 3, 16, 32, 64) and the P = 1 route
     (``beam_loop`` on the heap's pool) against the plain heap loop on the
     card (``kernel_backend="ref"``), every leaf bitwise, ``padded``
     included: the four batches, budgets of 64 and 9·P pops, a pool of
@@ -1377,6 +1379,9 @@ def heap_phase(engine, batches, df_word, bands, idf) -> int:
     or3 = batches[3][2]
     cases += [("or iii", or3, "or", P, budget, full)
               for P in (1,) + HEAP_PS for budget in (64, 9 * P)]
+    cases += [(f"{m} {b}", q, m, P, None, full)
+              for m, b, q in batches for P in HEAP_WIDE_PS]
+    cases += [("or iii", or3, "or", P, 9 * P, full) for P in HEAP_WIDE_PS]
     cases += [("and ii", batches[0][2], "and", 16, 64, full)]
     cases += [(f"or ii, cap {HEAP_SMALL_CAP}", batches[1][2], "or", P, None,
                HEAP_SMALL_CAP) for P in (2, 16)]
@@ -3997,10 +4002,10 @@ def sasrec_full(device: str, tally: Tally, small: bool = False) -> dict:
 def k6_probe(cands, h, ks, ki) -> dict:
     """Where K6's time goes at SASRec's shape (a diagnosis, not the path):
     its launch plan and cold ms at k = 10 and 100, on the 200-byte rows
-    (the unstaged path: each lane reads its own row) and on the same rows
-    zero-padded to d = 52 (208 bytes, 16-byte aligned: the staged path;
-    the padding adds +0.0 products, so the top-100 must equal ``(ks, ki)``
-    bitwise)."""
+    (staged in 8-byte units, each 32-row block one 6,400-byte span) and on
+    the same rows zero-padded to d = 52 (208 bytes: 16-byte units at an odd
+    stride; the padding adds +0.0 products, so the top-100 must equal
+    ``(ks, ki)`` bitwise)."""
     import torch
     from repro_torch.kernels import ops, topk_score
     C, d = cands.shape
@@ -4015,15 +4020,16 @@ def k6_probe(cands, h, ks, ki) -> dict:
     n_sm = torch.cuda.get_device_properties(cands.device).multi_processor_count
     out = {}
     for c, q, dd in ((cands, h, d), (padded, h_pad, d_pad)):
-        vec = (dd * 4) % 16 == 0 and c.data_ptr() % 16 == 0
+        unit = topk_score.staging_unit(dd * 4, c.data_ptr(), 4)
         for k in (10, RS_K):
-            pl = topk_score.launch_plan(1, C, dd, 4, vec, k, False, n_sm)
+            pl = topk_score.launch_plan(1, C, dd, 4, unit, k, False, n_sm)
             ms = cold_ms(lambda: ops.scored_topk(c, q, k=k), reps=20)
-            label = f"d={dd} {'staged' if vec else 'unstaged'} k={k}"
+            label = f"d={dd} unit={unit} k={k}"
             out[label] = {"cold_ms": ms, "plan": pl._asdict()}
     log("K6 probe at C=%d (cold ms): " % C + ", ".join(
         f"{k} {v['cold_ms']:.6f} (gx {v['plan']['gx']}, rows/block "
-        f"{v['plan']['rs']})" for k, v in out.items()))
+        f"{v['plan']['rs']}, stages {v['plan']['ns']}, buffer "
+        f"{v['plan']['nc']})" for k, v in out.items()))
     return out
 
 

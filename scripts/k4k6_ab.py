@@ -15,8 +15,9 @@ own package, and saves the kernels' inputs under ``build/``:
   every document bound (D = n_docs);
 * K6 at the DRB ``or`` shape: the (B, n_docs, Q) parts, (B, Q) weights
   and (B, n_docs) mask that the plain ``or`` query (BM25, the ``or`` ii
-  batch) hands to ``scored_topk``; and at C = 10^6, d = 128, k = 10: random
-  float32 rows from ``chip_smoke.py``'s seed, drawn on the card.
+  batch) hands to ``scored_topk``; at C = 10^6, d = 128, k = 10, and at
+  SASRec's retrieval shape C = 10^6, d = 50, k = 100: random float32 rows
+  from ``chip_smoke.py``'s seed, drawn on the card.
 
 The trees then run in the rounds A, B, ..., B, A, one process per round
 (two copies of the package cannot share one).  Each times its own wrappers
@@ -24,8 +25,8 @@ with ``chip_smoke.cold_ms`` (median over CUDA-event spans after a 256 MB
 write and read that flush the 50 MB L2, the card held in a spin while the
 call is enqueued) and ``warm_ms`` (the same without the flush), counts the
 device kernels one call runs (``torch.profiler``), and times the library
-calls ``torch.topk(torch.mv(...))`` and ``torch.topk(torch.bmm(...)
-.masked_fill(...))`` the same way.  Every round's outputs must equal the
+calls ``torch.topk(torch.mv(...))`` (k = 10 and 100) and
+``torch.topk(torch.bmm(...).masked_fill(...))`` the same way.  Every round's outputs must equal the
 first round's bitwise.  Prints the card's name and power limit, one line
 per round and as its last line a JSON object of every number.  It needs a
 CUDA card.
@@ -111,6 +112,8 @@ def worker(src: str, reps: int) -> dict:
     g = torch.Generator(device="cuda").manual_seed(cs.SEED)
     cands = torch.randn((1_000_000, 128), generator=g, device="cuda")
     qv = torch.randn(128, generator=g, device="cuda")
+    c50 = torch.randn((1_000_000, 50), generator=g, device="cuda")
+    h50 = torch.randn(50, generator=g, device="cuda")
 
     calls = {
         "segment_tf D=%d" % (bounds.numel() - 1): lambda: (
@@ -118,6 +121,8 @@ def worker(src: str, reps: int) -> dict:
                                   block=block)),
         "scored_topk C=1000000 d=128 k=%d" % cs.K: lambda: (
             topk_score.scored_topk(cands, qv, k=cs.K, tile=1024)),
+        "scored_topk C=1000000 d=50 k=100 (SASRec)": lambda: (
+            topk_score.scored_topk(c50, h50, k=100)),
         "scored_topk B=%d C=%d d=%d k=%d (DRB or)" % (
             part.shape[0], part.shape[1], part.shape[2], k6): lambda: (
             topk_score.scored_topk(part, w6, k=k6, tile=tile6, valid=ok6)),
@@ -145,6 +150,8 @@ def worker(src: str, reps: int) -> dict:
     out["library_cold_ms"] = {
         "torch.topk(torch.mv(cands, q), k)": cs.cold_ms(
             lambda: torch.topk(torch.mv(cands, qv), cs.K), reps),
+        "torch.topk(torch.mv(c50, h50), 100)": cs.cold_ms(
+            lambda: torch.topk(torch.mv(c50, h50), 100), reps),
         "torch.topk(torch.bmm(part, w).masked_fill(~valid, -inf), k)":
             cs.cold_ms(lambda: torch.topk(torch.bmm(part, w6[:, :, None])[
                 ..., 0].masked_fill(~ok6, float("-inf")), k6), reps),

@@ -23,6 +23,11 @@
 // (warp_summarise); an insert updates its chunk's summary in place
 // (note_insert: the new key against the best, its bit out of the free mask)
 // and then the chunk's two lowest free slots from the mask (mask_low2).
+//
+// heap_loop pops P slots at once with the whole block: block_select, a
+// radix select over the keys' 128 bits (Key4), picks the P best chunk
+// summaries and then the P best slots among those chunks; beam_loop pops
+// one slot a trip on one warp (warp_best).
 #pragma once
 
 #include <climits>
@@ -124,17 +129,6 @@ __device__ __forceinline__ void warp_best(const Summaries& sm, int active,
     merge_low2(f1, f2, sm.f1[ch], sm.f2[ch]);
   }
   warp_reduce(best, f1, f2);
-}
-
-// The lex-greatest live key over chunks [0, active) (idx < 0: none).
-__device__ __forceinline__ Key warp_best_key(const Summaries& sm, int active) {
-  Key best = {-CUDART_INF_F, 0, 0, -1};
-  for (int ch = threadIdx.x & 31; ch < active; ch += 32) {
-    const Key c = {sm.s[ch], sm.d0[ch], sm.d1[ch], sm.idx[ch]};
-    if (precedes(c, best)) best = c;
-  }
-  warp_reduce_key(best);
-  return best;
 }
 
 // The two lowest free slots of chunk ch from its bit mask (INT_MAX for
@@ -262,12 +256,145 @@ __device__ __forceinline__ void block_summarise(const Summaries& sm,
   }
 }
 
+// ---- block-wide selection (heap_loop's pops) ----
+//
+// A key of the total order as four 32-bit words compared lexicographically,
+// greater first: the score's order bits (-0 as +0), ~d0, d1, ~idx — so
+// "greater" is precedes().
+struct Key4 {
+  uint32_t w[4];
+};
+
+__device__ __forceinline__ Key4 key4(float s, int d0, int d1, int idx) {
+  uint32_t u = __float_as_uint(s == 0.0f ? 0.0f : s);
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return {{u, 0xffffffffu - static_cast<uint32_t>(d0),
+           static_cast<uint32_t>(d1), 0xffffffffu - static_cast<uint32_t>(idx)}};
+}
+
+__device__ __forceinline__ bool key4_ge(const Key4& a, const Key4& b) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (a.w[i] != b.w[i]) return a.w[i] > b.w[i];
+  return true;
+}
+
+// The scratch of block_select: two 256-bin histograms (one counted while
+// the other is cleared), the scan's ints, and the keys of a small bucket.
+struct SelectScratch {
+  unsigned hist[2][256];
+  int sc[12];
+  int n_small;
+  Key4 small[32];
+  Key4 thr;
+};
+
+// Radix select over the valid keys get(i, key), i in [0, n): returns a
+// threshold T such that the `want` greatest valid keys are exactly the
+// valid keys >= T (every valid key when there are at most `want`).  Digits
+// of 8 bits from the most significant; the select stops at the first digit
+// whose bucket is taken whole, or once the bucket that holds the want-th
+// key has at most 32 keys: those are gathered and ranked by one warp.
+// Every thread of the block (kThreads >= 256) calls it; keys are distinct.
+template <int kThreads, class Get>
+__device__ Key4 block_select(Get get, int n, int want, SelectScratch& x) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  Key4 pre = {{0u, 0u, 0u, 0u}};
+  for (int b = tid; b < 256; b += kThreads) x.hist[0][b] = 0u;
+  if (tid == 0) x.n_small = 0;
+  __syncthreads();
+  for (int j = 0; j < 16; ++j) {
+    const int wi = j >> 2, sh = 24 - 8 * (j & 3);
+    const uint32_t hm = sh == 24 ? 0u : ~0u << (sh + 8);  // digits above
+    unsigned* hist = x.hist[j & 1];
+    for (int i0 = 0; i0 < n; i0 += kThreads) {  // uniform trip count
+      const int i = i0 + tid;
+      Key4 k;
+      int digit = 256;                           // 256: not counted
+      if (i < n && get(i, k)) {
+        bool m = (k.w[wi] & hm) == (pre.w[wi] & hm);
+        for (int u = 0; u < wi; ++u) m = m && k.w[u] == pre.w[u];
+        if (m) digit = static_cast<int>((k.w[wi] >> sh) & 255u);
+      }
+      // one shared atomic per distinct digit of the warp: keys that share
+      // their top digits would serialize on one bin
+      const unsigned peers = __match_any_sync(kFull, digit);
+      if (digit < 256 && lane == __ffs(peers) - 1)
+        atomicAdd(&hist[digit], static_cast<unsigned>(__popc(peers)));
+    }
+    __syncthreads();
+    // suffix sums S(b) = hist[b] + ... + hist[255] on threads 0..255; the
+    // other histogram is cleared for the next digit
+    for (int b = tid; b < 256; b += kThreads) x.hist[(j + 1) & 1][b] = 0u;
+    int s = 0, h = 0;
+    if (tid < 256) {
+      h = s = static_cast<int>(hist[tid]);
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_down_sync(kFull, s, o);
+        if (lane + o < 32) s += v;
+      }
+      if (lane == 0) x.sc[warp] = s;
+    }
+    __syncthreads();
+    if (tid < 256) {
+      int total = 0;
+      for (int w = 0; w < 8; ++w) total += x.sc[w];
+      for (int w = warp + 1; w < 8; ++w) s += x.sc[w];
+      if (j == 0 && total <= want) {
+        if (tid == 0) x.sc[8] = -1;
+      } else if (s >= want && s - h < want) {  // the bucket crossing want
+        x.sc[8] = tid;
+        x.sc[9] = s - h;
+        x.sc[10] = h;
+      }
+    }
+    __syncthreads();
+    const int b = x.sc[8];
+    if (b < 0) return pre;  // at most `want`: every valid key is >= 0
+    const int above = x.sc[9], cnt = x.sc[10];
+    pre.w[wi] |= static_cast<uint32_t>(b) << sh;
+    want -= above;
+    if (cnt == want) return pre;  // the bucket is taken whole
+    if (cnt <= 32) {
+      // the bucket's keys, ranked by one warp: the want-th greatest
+      const uint32_t hb = ~0u << sh;  // digits through this one
+      for (int i0 = 0; i0 < n; i0 += kThreads) {
+        const int i = i0 + tid;
+        Key4 k;
+        if (i >= n || !get(i, k) || (k.w[wi] & hb) != pre.w[wi]) continue;
+        bool m = true;
+        for (int u = 0; u < wi; ++u) m = m && k.w[u] == pre.w[u];
+        if (m) x.small[atomicAdd(&x.n_small, 1)] = k;
+      }
+      __syncthreads();
+      if (warp == 0 && lane < cnt) {
+        const Key4 me = x.small[lane];
+        int rank = 0;  // keys of the bucket greater than this one
+        for (int v = 0; v < cnt; ++v)
+          rank += v != lane && key4_ge(x.small[v], me);
+        if (rank == want - 1) x.thr = me;
+      }
+      __syncthreads();
+      return x.thr;
+    }
+  }
+  return pre;
+}
+
+// The n-th (from 0) set bit of m; m has more than n set bits.
+__device__ __forceinline__ int nth_bit(uint32_t m, int n) {
+  for (; n > 0; --n) m &= m - 1u;
+  return __ffs(m) - 1;
+}
+
 // Host: where a launch keeps the summaries of a pool of cap slots.  The
 // launch needs `fixed` bytes of dynamic shared memory of its own; the
 // summaries join them while the whole fits the card's opt-in beside the
 // kernel's static shared memory (*in_shared), else they go to the caller's
 // global scratch.  *smem is the launch's dynamic shared memory; the opt-in
-// attribute of the kernel that runs is raised past 48 KB.
+// attribute of the kernel that runs is raised when it and the static shared
+// memory pass 48 KB.
 template <typename KShared, typename KGlobal>
 inline cudaError_t plan_summaries(KShared k_shared, KGlobal k_global,
                                   size_t fixed, int cap, bool* in_shared,
@@ -283,7 +410,7 @@ inline cudaError_t plan_summaries(KShared k_shared, KGlobal k_global,
   *smem = *in_shared ? fixed + sums : fixed;
   if (*smem + attr.sharedSizeBytes > (size_t)optin)
     return cudaErrorInvalidValue;  // not even the fixed part fits
-  if (*smem > 48 * 1024) {
+  if (*smem + attr.sharedSizeBytes > 48 * 1024) {
     e = *in_shared ? cudaFuncSetAttribute(
                          k_shared, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(*smem))

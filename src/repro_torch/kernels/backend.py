@@ -182,9 +182,10 @@ BITMAP_RANK1 = CudaKernel(
     (_P, _P, _I, _I, _P, _P, _I, _P))
 SCORED_TOPK = CudaKernel(
     "scored_topk", "topk_score.cu",
-    # cands, query, row_ok, B, C, d, dtype, k, vec, rs, su, sp, nslice, gx,
-    # shmem, part_s, part_i, list_s, list_i, tickets, out_s, out_i, stream
-    (_P, _P, _P) + (_I,) * 12 + (_P,) * 8)
+    # cands, query, row_ok, B, C, d, dtype, k, unit, rs, su, sp, nslice,
+    # ns, gx, nc, every, grp, buf_in_smem, shmem, part_s, part_i, part_t,
+    # gbuf_s, gbuf_i, tickets, gtickets, out_s, out_i, stream
+    (_P, _P, _P) + (_I,) * 17 + (_P,) * 10)
 _F = ctypes.c_float
 DRB_WALK = CudaKernel(
     "drb_walk", "drb_walk.cu",

@@ -3,11 +3,15 @@
 Replaces the Pallas kernel ``repro/kernels/topk_score.py`` (``_kernel``).
 Top-k of ``cands @ query`` for one query against C candidate rows, in ONE
 launch on the card (``csrc/topk_score.cu``): a persistent grid stages row
-blocks through shared memory with ``cp.async``, scores each row left to
-right over d (each product rounded and then added), keeps each warp's k
-best as it goes, and the last block of each query merges the blocks'
-partials by an atomic ticket — the order (score desc, row asc) that
-``lax.top_k`` gives.  :func:`launch_plan` sizes the stages and the grid.
+blocks through shared memory with ``cp.async`` (in pieces of 16, 8, 4 or 2
+bytes, whichever the rows' width and address allow), scores each row left
+to right over d (each product rounded and then added), keeps the k best as
+it goes — each warp's list in registers for k <= 32; for k > 32 a block
+buffer behind a rising score threshold, cut back to its k best by a
+block-wide radix select — and the last block of each query merges the
+blocks' partials by an atomic ticket, in the order (score desc, row asc)
+that ``lax.top_k`` gives.  :func:`launch_plan` sizes the stages, the grid
+and the buffer.
 The plain version is ``kernels/ref.py:scored_topk_ref``.
 
 Unlike the reference, whose padding rows score 0 and are dropped only after
@@ -24,6 +28,7 @@ this step with the gather.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -32,15 +37,21 @@ from repro_torch.kernels import backend, ref
 
 _DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _SMEM_BYTES = 227 * 1024
-# csrc/topk_score.cu: warps per block, cp.async stages per warp, the shared
-# candidate buffer of a k > 32 list; and the bytes a stage may hold
-WARPS, STAGES, BUF = 8, 4, 256
+# csrc/topk_score.cu: warps per block; the bytes a stage of a 4-stage ring
+# may hold; an upper bound of the kernel's static shared bytes; the least
+# candidate buffer of a k > 32 selection (entries of 8 bytes, in shared
+# memory at this size)
+WARPS = 8
 STAGE_BYTES = 5632
+STATIC_SMEM = 5632
+BUF_MIN = 4096
 SMALL_K = 32                # k up to this keeps its lists in registers
 _MAX_B = 65535
 # per (device, stream): the queries' merge tickets, zeroed once; each launch
 # leaves them at zero again (atomicInc wraps)
 _TICKETS: dict[tuple[int, int], torch.Tensor] = {}
+# and the k > 32 groups' (at most max(SMs, B) groups a launch)
+_GTICKETS: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def _require(cond: bool, what: str) -> None:
@@ -49,50 +60,84 @@ def _require(cond: bool, what: str) -> None:
 
 
 class Plan(NamedTuple):
-    """The kernel's launch geometry: ``rs`` rows per row block (a multiple
-    of 32), staged ``su`` 16-byte units of a row at a time at a stride of
-    ``sp`` units (odd: no bank conflict), ``nslice`` stages per row block,
-    ``gx`` blocks per query, ``shmem`` dynamic shared bytes per block."""
+    """The kernel's launch geometry: rows staged in ``unit``-byte pieces,
+    ``rs`` rows per row block (a multiple of 32), ``su`` units of a row a
+    stage at a stride of ``sp`` units (odd: no bank conflict), ``nslice``
+    stages per row block, a ring of ``ns`` stages per warp, ``gx`` blocks
+    per query; k > 32: a candidate buffer of ``nc`` entries, in shared
+    memory when ``buf_in_smem``, with room for ``every`` rounds of the
+    block's row blocks between its barriers, and the partials merged in
+    groups of ``grp`` blocks; ``shmem`` dynamic shared bytes per block."""
+    unit: int
     rs: int
     su: int
     sp: int
     nslice: int
+    ns: int
     gx: int
+    nc: int
+    every: int
+    grp: int
+    buf_in_smem: bool
     small: bool
     shmem: int
 
 
-def launch_plan(B: int, C: int, d: int, elem: int, vec: bool, k: int,
+def staging_unit(row_bytes: int, addr: int, elem: int) -> int:
+    """The largest of 16, 8, 4, 2 bytes that divides a row's bytes and the
+    candidates' address (at least the element size)."""
+    g = 16
+    while g > elem and (row_bytes % g or addr % g):
+        g //= 2
+    return g
+
+
+def launch_plan(B: int, C: int, d: int, elem: int, unit: int, k: int,
                 masked: bool, n_sm: int) -> Plan:
-    """Stage sizes and grid of one launch (the arithmetic
-    ``csrc/topk_score.cu`` trusts).  ``vec``: rows are 16-byte aligned and
-    staged; otherwise each lane reads its row from device memory, 32 rows a
-    row block.  A whole row fits a stage when 32 rows at an odd stride do
-    (``STAGE_BYTES``); the stage then holds as many multiples of 32 rows as
-    fit.  Wider rows are staged 32 rows x ``su`` units at a time.  One block
-    of ``WARPS`` warps per SM, spread over the B queries (one wave: never
-    more blocks than SMs while B fits), no more warps than row blocks; a k > 32 list takes at most one block per 4 * WARPS * k
-    rows, so each warp's list sees several k rows."""
+    """Stage sizes, grid and buffer of one launch (the arithmetic
+    ``csrc/topk_score.cu`` trusts).  A row is ``d * elem / unit`` units at
+    an odd stride.  32 rows that fit ``STAGE_BYTES`` make a ring of 4
+    stages of as many multiples of 32 rows as fit; wider rows take a ring
+    of 3 stages of 32 rows while it fits shared memory, else are staged 32
+    rows x ``su`` units at a time.  One block of ``WARPS`` warps per SM,
+    spread over the B queries (one wave: never more blocks than SMs while B
+    fits), no more warps than row blocks; a k > 32 selection takes at most
+    one block per 4 * k rows and a buffer of at least ``BUF_MIN`` entries,
+    the next power of two of k and k plus one round of the block's rows; a
+    barrier every round up to 8 while they fill at most half the room past
+    k; groups of about sqrt(gx) blocks."""
     small = k <= SMALL_K
-    if vec:
-        upr = d * elem // 16
-        sp = upr | 1
-        if 32 * sp * 16 <= STAGE_BYTES:
-            rs, su, nslice = 32 * (STAGE_BYTES // (32 * sp * 16)), upr, 1
-        else:
-            su = STAGE_BYTES // (32 * 16)
-            su -= 1 - su % 2                      # odd
-            rs, sp, nslice = 32, su, -(-upr // su)
+    upr = d * elem // unit
+    sp = upr | 1
+    avail = _SMEM_BYTES - STATIC_SMEM - (0 if small else BUF_MIN * 8)
+
+    def ring(ns: int, rs: int, stride: int) -> int:
+        mask = (rs + 31) & ~15 if masked else 0
+        return WARPS * ns * (rs * stride * unit + mask)
+    row32 = 32 * sp * unit
+    if row32 <= STAGE_BYTES:
+        ns, rs, su, nslice = 4, 32 * (STAGE_BYTES // row32), upr, 1
+        while rs > 32 and ring(ns, rs, sp) > avail:
+            rs -= 32
+    elif ring(3, 32, sp) <= avail:
+        ns, rs, su, nslice = 3, 32, upr, 1
     else:
-        rs, su, sp, nslice = 32, 0, 0, 1
+        su = STAGE_BYTES // (32 * unit)
+        su -= 1 - su % 2                      # odd
+        ns, rs, sp, nslice = 4, 32, su, -(-upr // su)
     n_rb = -(-C // rs)
     gx = max(1, min(n_sm // B, -(-n_rb // WARPS)))
+    nc, every, grp, in_smem = 0, 1, 1, False
     if not small:
-        gx = max(1, min(gx, C // (4 * WARPS * k)))
-    mask_bytes = (rs + 31) & ~15 if vec and masked else 0
-    per_warp = (STAGES * (rs * sp * 16 + mask_bytes) if vec else 0) \
-        + (0 if small else BUF * 8)
-    return Plan(rs, su, sp, nslice, gx, small, WARPS * per_warp)
+        gx = max(1, min(gx, C // (4 * k)))
+        need = max(BUF_MIN, 1 << (k - 1).bit_length(), k + WARPS * rs)
+        nc = -(-need // 256) * 256
+        in_smem = nc == BUF_MIN
+        every = max(1, min(8, (nc - k) // (2 * WARPS * rs)))
+        grp = math.isqrt(gx - 1) + 1
+    shmem = ring(ns, rs, sp) + (nc * 8 if in_smem else 0)
+    return Plan(unit, rs, su, sp, nslice, ns, gx, nc, every, grp, in_smem,
+                small, shmem)
 
 
 def work(B: int, C: int, d: int, elem: int, k: int,
@@ -106,11 +151,11 @@ def work(B: int, C: int, d: int, elem: int, k: int,
     return nbytes, 2 * B * C * d
 
 
-def _tickets(dev: torch.device) -> torch.Tensor:
+def _tickets(dev: torch.device, store: dict) -> torch.Tensor:
     key = (dev.index, backend.stream())
-    t = _TICKETS.get(key)
+    t = store.get(key)
     if t is None:
-        t = _TICKETS[key] = torch.zeros(_MAX_B, dtype=torch.int32, device=dev)
+        t = store[key] = torch.zeros(_MAX_B, dtype=torch.int32, device=dev)
     return t
 
 
@@ -153,22 +198,26 @@ def scored_topk(cands: torch.Tensor, query: torch.Tensor, *, k: int,
     _require(1 <= B <= _MAX_B, f"a batch of {B} queries must be in [1, 65535]")
     ok = None if valid is None else valid.contiguous().view(torch.uint8)
     q = query.to(torch.float32).contiguous()
-    vec = (d * cands.element_size()) % 16 == 0 and cands.data_ptr() % 16 == 0
+    es = cands.element_size()
+    unit = staging_unit(d * es, cands.data_ptr(), es)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    pl = launch_plan(B, C, d, cands.element_size(), vec, k, ok is not None,
-                     n_sm)
+    pl = launch_plan(B, C, d, es, unit, k, ok is not None, n_sm)
     part_s = torch.empty((B, pl.gx, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((B, pl.gx, k), dtype=torch.int32, device=dev)
-    n_list = 0 if pl.small else B * pl.gx * WARPS * 2 * k
-    list_s = torch.empty(n_list, dtype=torch.float32, device=dev)
-    list_i = torch.empty(n_list, dtype=torch.int32, device=dev)
+    part_t = torch.empty(0 if pl.small else B * pl.gx, dtype=torch.float32,
+                         device=dev)
+    n_buf = 0 if pl.small or pl.buf_in_smem else B * pl.gx * pl.nc
+    gbuf_s = torch.empty(n_buf, dtype=torch.float32, device=dev)
+    gbuf_i = torch.empty(n_buf, dtype=torch.int32, device=dev)
     s = torch.empty((B, k), dtype=torch.float32, device=dev)
     i = torch.empty((B, k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         backend.SCORED_TOPK.launch(
             cands.data_ptr(), q.data_ptr(), 0 if ok is None else ok.data_ptr(),
-            B, C, d, _DTYPES[cands.dtype], k, int(vec), pl.rs, pl.su, pl.sp,
-            pl.nslice, pl.gx, pl.shmem, part_s.data_ptr(), part_i.data_ptr(),
-            list_s.data_ptr(), list_i.data_ptr(), _tickets(dev).data_ptr(),
-            s.data_ptr(), i.data_ptr())
+            B, C, d, _DTYPES[cands.dtype], k, pl.unit, pl.rs, pl.su, pl.sp,
+            pl.nslice, pl.ns, pl.gx, pl.nc, pl.every, pl.grp,
+            int(pl.buf_in_smem), pl.shmem, part_s.data_ptr(),
+            part_i.data_ptr(), part_t.data_ptr(), gbuf_s.data_ptr(),
+            gbuf_i.data_ptr(), _tickets(dev, _TICKETS).data_ptr(),
+            _tickets(dev, _GTICKETS).data_ptr(), s.data_ptr(), i.data_ptr())
     return (s, i) if batched else (s[0], i[0])

@@ -8,9 +8,11 @@ with ``kernel_backend="ref"`` it runs the plain host loop.  Every result
 leaf — docs, scores, n_found, iters, pops, overflowed, padded, certified,
 bound — must be bitwise equal: the port's results are bitwise equal between
 the CPU and the card, and the kernels score with the plain loop's rounding.
-Cases: and/or, with and without a pop budget, caps that overflow, `or`
-frontiers past one summary chunk (256 slots), a pool whose summaries do not
-fit shared memory, Q from 1 to 64.
+Cases: and/or, with and without a pop budget, P = 2, 16, 32 and 64 (the
+block-wide pop and push code has lanes past 32 at P >= 32), caps that
+overflow, `or` frontiers past one summary chunk (256 slots), a pool whose
+summaries do not fit shared memory, Q from 1 to 64, and a pool with many
+holes below its high-water mark (the pushes' free-slot scan).
 """
 import numpy as np
 import pytest
@@ -84,7 +86,7 @@ def _both(idx, idf, words, mask, **kw):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("budget", [None, "9P"])
-@pytest.mark.parametrize("P", [2, 16])
+@pytest.mark.parametrize("P", [2, 16, 32, 64])
 @pytest.mark.parametrize("mode", ["and", "or"])
 def test_heap_loop_matches_plain_on_card(card, mode, P, budget):
     cp, idx, model, idf = _engine(card)
@@ -127,6 +129,53 @@ def test_heap_loop_global_summaries_on_card(card):
     words, mask = _batch(cp, model, 4, 7, card)
     _both(idx, idf, words, mask, k=50, conjunctive=False, heap_cap=1_200_000,
           beam_width=16, max_pops=2000)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [3, 16, 64])
+def test_heap_loop_pool_with_holes_on_card(card, P):
+    """A pool the plain loop left after 40 trips at P = 16, with every
+    other live slot then freed (holes all over, below the high-water mark),
+    run to the end by the kernel and by the plain loop: the pool slot for
+    slot, the state and the per-trip widths bitwise."""
+    from repro_torch.core import heap as H
+    cp, idx, model, idf = _engine(card)
+    words, mask = _batch(cp, model, 4, 13, card)
+    idf_w = torch.where(mask, idf[words.long()], 0.0).to(torch.float32)
+    cap = 2 * idx.n_docs + 4
+    pool, st = ranked.init_search(idx, words, mask, idf_w, k=400,
+                                  conjunctive=False, cap=cap,
+                                  kernel_backend="ref")
+    st, _ = heap_loop.heap_loop_ref(idx, pool, st, words, mask, idf_w, P=16,
+                                    k=400, conjunctive=False,
+                                    max_pops=16 * 40)
+    live = pool.scores[:, :cap] > H.NEG_INF
+    drop = live & (torch.cumsum(live.to(torch.int32), 1) % 2 == 0)
+    drop &= ~(live & (torch.cumsum(live.flip(1).to(torch.int32), 1)
+                      .flip(1) == 1))           # keep the high-water mark
+    pool.scores[:, :cap][drop] = H.NEG_INF
+    pool.size.sub_(drop.sum(1, dtype=torch.int32))
+    live = pool.scores[:, :cap] > H.NEG_INF
+    hw = cap - torch.argmax(live.flip(1).to(torch.int32), 1)
+    holes = [int((~live[b, :hw[b]]).sum()) for b in range(4)]
+    assert max(holes) >= 64, holes
+    runs = []
+    for kb in ("auto", "ref"):
+        p = H.Pool(*(t.clone() for t in pool))
+        s = heap_loop.HeapState(*(t.clone() for t in st))
+        s, widths = heap_loop.heap_loop(idx, p, s, words, mask, idf_w, P=P,
+                                        k=400, conjunctive=False,
+                                        max_pops=None, kernel_backend=kb)
+        runs.append((p, s, widths))
+    (gp, gs, gw), (wp, ws, ww) = runs
+    torch.cuda.synchronize()
+    for a, b in zip(gp, wp):
+        assert torch.equal(a[:, :cap] if a.dim() > 1 else a,
+                           b[:, :cap] if b.dim() > 1 else b)
+    for name in ("out_docs", "out_scores", "n_out", "iters", "pops"):
+        assert torch.equal(getattr(gs, name), getattr(ws, name)), name
+    T = ww.shape[1]
+    assert torch.equal(gw[:, :T], ww) and not bool(gw[:, T:].any())
 
 
 @pytest.mark.cuda

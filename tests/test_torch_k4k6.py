@@ -10,12 +10,16 @@ On the CPU:
   bounds, unsorted bounds and blocks of 64 to 8,192 bytes;
 * ``segment_tf_ref`` at those edge bounds and at D = 0 against the
   reference's ``segment_tf`` in interpret mode and a direct count;
-* K6's ``launch_plan`` (stage sizes, the odd stride, slices, the grid, the
-  shared memory, the small-k / large-k choice) against what the kernel
-  assumes, and a numpy mirror of the whole kernel (each warp's rows, its
-  register or buffered list, the block merge, the partials and the last
-  block's merge) against ``scored_topk_ref`` bitwise, with ties across
-  blocks, masks, k = 1, 32, 33 and k past a warp's rows.
+* K6's ``staging_unit`` and ``launch_plan`` (units of 16, 8, 4 or 2 bytes,
+  stage sizes, the odd stride, slices, the ring's stages, the grid, the
+  shared memory, the k > 32 buffer) against what the kernel assumes, and a
+  numpy mirror of the whole kernel (each warp's rows; k <= 32 its register
+  list and the merges; k > 32 the block buffer behind its rising
+  threshold, rows equal to it still entering, the radix select that cuts
+  it back to k, the partials and the last block's merge) against
+  ``scored_topk_ref`` bitwise, with ties across blocks, masks, negative
+  scores, SASRec's d = 50 at k = 100, k = 1, 32, 33, k = C and k past a
+  warp's rows.
 
 The tests marked ``cuda`` hold both kernels against their plain versions on
 the card, bitwise; they skip without a GPU.
@@ -183,62 +187,101 @@ def test_segment_tf_plain_matches_reference_at_edges(case):
 # K6: scored_topk — the launch plan
 # ---------------------------------------------------------------------------
 
-K6_STATIC_SMEM = 2 * 4 * topk_score.WARPS * 32 + 4 * 8 + 8 * 2 * 8 + 16
+UNITS = (16, 8, 4, 2)
+
+
+def _units(row_bytes, elem):
+    return [g for g in UNITS if g >= elem and row_bytes % g == 0]
+
+
+def test_k6_staging_unit():
+    """The largest of 16, 8, 4, 2 bytes dividing the row and the address."""
+    su = topk_score.staging_unit
+    assert su(512, 0, 4) == 16 and su(200, 0, 4) == 8 and su(200, 4, 4) == 4
+    assert su(16, 8, 4) == 8 and su(12, 0, 4) == 4 and su(14, 0, 2) == 2
+    assert su(200, 1024 + 8, 4) == 8 and su(6, 0, 2) == 2
 
 
 @pytest.mark.parametrize("elem", [4, 2])
 def test_k6_plan_stages_fit_and_cover_rows(elem):
-    per = 16 // elem
-    for d in (per, 2 * per, 4 * per, 128, 256, 1024, 4096, 57000 // per * per):
-        for masked in (False, True):
-            for k in (1, 10, 32, 33, 1024):
-                pl = topk_score.launch_plan(1, 10**6, d, elem, True, k,
-                                            masked, 132)
-                upr = d * elem // 16
-                assert pl.rs % 32 == 0 and pl.rs >= 32
-                assert pl.sp % 2 == 1 and pl.sp >= pl.su
-                assert pl.su * pl.nslice >= upr > pl.su * (pl.nslice - 1)
-                if pl.nslice == 1:
-                    assert pl.su == upr and pl.sp in (upr, upr + 1)
-                else:
-                    assert pl.rs == 32
-                assert pl.rs * pl.sp * 16 <= topk_score.STAGE_BYTES
-                assert pl.small == (k <= 32)
-                assert pl.shmem + K6_STATIC_SMEM <= 227 * 1024
-                assert pl.shmem % 16 == 0
+    for d in (1, 3, 7, 8, 50, 64, 128, 256, 1000, 4096, 57000 // 8 * 8):
+        for unit in _units(d * elem, elem):
+            for masked in (False, True):
+                for k in (1, 10, 32, 33, 100, 1024):
+                    pl = topk_score.launch_plan(1, 10**6, d, elem, unit, k,
+                                                masked, 132)
+                    upr = d * elem // unit
+                    assert pl.unit == unit
+                    assert pl.rs % 32 == 0 and pl.rs >= 32
+                    assert pl.sp % 2 == 1 and pl.sp >= pl.su
+                    assert pl.su * pl.nslice >= upr > pl.su * (pl.nslice - 1)
+                    if pl.nslice == 1:
+                        assert pl.su == upr and pl.sp in (upr, upr + 1)
+                    else:
+                        assert pl.rs == 32 and pl.ns == 4
+                    if pl.ns == 4:
+                        assert pl.rs * pl.sp * unit <= topk_score.STAGE_BYTES
+                    else:
+                        assert pl.ns == 3 and pl.rs == 32
+                    assert pl.small == (k <= 32)
+                    if not pl.small:    # the rounds between barriers fit
+                        assert pl.nc >= k + pl.every * topk_score.WARPS * pl.rs
+                        assert pl.grp ** 2 >= pl.gx > (pl.grp - 1) ** 2
+                        assert pl.nc >= 1 << (k - 1).bit_length()
+                        assert pl.buf_in_smem == (pl.nc == topk_score.BUF_MIN)
+                    assert pl.shmem + topk_score.STATIC_SMEM <= 227 * 1024
+                    assert pl.shmem % 16 == 0
 
 
 def test_k6_plan_odd_stride_spreads_a_phase_over_banks():
-    """Eight lanes reading rows j..j+7 at one 16-byte unit land on eight
-    different 16-byte bank groups when the stride in units is odd."""
-    for d in (4, 8, 64, 128, 132, 512):
-        pl = topk_score.launch_plan(1, 10**5, d, 4, True, 10, False, 132)
-        for u in range(3):
-            groups = {((j * pl.sp + u) % 8) for j in range(8)}
-            assert len(groups) == 8
+    """The lanes of one shared-memory phase (128 bytes: 8 lanes of 16-byte
+    units, 16 of 8-byte, 32 of 4-byte) reading consecutive rows at one unit
+    land on different bank groups when the stride in units is odd."""
+    for d, elem in ((4, 4), (8, 4), (50, 4), (64, 4), (128, 4), (132, 4),
+                    (512, 4), (25, 4), (7, 4), (50, 2)):
+        for unit in _units(d * elem, elem):
+            if unit == 2:
+                continue
+            pl = topk_score.launch_plan(1, 10**5, d, elem, unit, 10, False,
+                                        132)
+            lanes = 128 // unit
+            for u in range(3):
+                groups = {(j * pl.sp + u) % lanes for j in range(lanes)}
+                assert len(groups) == lanes
 
 
 def test_k6_plan_grid():
     # one block per SM over the queries; no more warps than row blocks
-    pl = topk_score.launch_plan(1, 10**6, 128, 4, True, 10, False, 132)
+    pl = topk_score.launch_plan(1, 10**6, 128, 4, 16, 10, False, 132)
     assert pl.gx == 132 and (pl.nslice, pl.rs, pl.su, pl.sp) == (3, 32, 11, 11)
-    pl = topk_score.launch_plan(8, 86445, 4, 4, True, 10, True, 132)
+    pl = topk_score.launch_plan(8, 86445, 4, 4, 16, 10, True, 132)
     assert pl.gx == 16 and (pl.rs, pl.su, pl.sp, pl.nslice) == (352, 1, 1, 1)
     for B in (1, 3, 8, 100, 131, 132, 133, 5000):     # one wave of blocks
-        pl = topk_score.launch_plan(B, 10**5, 16, 4, True, 10, False, 132)
+        pl = topk_score.launch_plan(B, 10**5, 16, 4, 16, 10, False, 132)
         assert pl.gx * B <= max(132, B)
-    pl = topk_score.launch_plan(3, 100, 128, 4, True, 5, False, 132)
+    pl = topk_score.launch_plan(3, 100, 128, 4, 16, 5, False, 132)
     assert pl.gx == 1                               # C below one row block
-    pl = topk_score.launch_plan(65535, 10, 4, 4, True, 3, False, 132)
+    pl = topk_score.launch_plan(65535, 10, 4, 4, 16, 3, False, 132)
     assert pl.gx == 1
-    # k > 32: a block per 4 * WARPS * k rows at most
-    pl = topk_score.launch_plan(1, 10**6, 128, 4, True, 1024, False, 132)
-    assert pl.gx == 10**6 // (4 * topk_score.WARPS * 1024)
-    pl = topk_score.launch_plan(1, 2000, 128, 4, True, 1024, False, 132)
+    # k > 32: a block per 4 * k rows at most
+    pl = topk_score.launch_plan(1, 10**6, 128, 4, 16, 1024, False, 132)
+    assert pl.gx == 132 and pl.buf_in_smem
+    pl = topk_score.launch_plan(1, 20000, 128, 4, 16, 1024, False, 132)
+    assert pl.gx == 20000 // (4 * 1024)
+    pl = topk_score.launch_plan(1, 2000, 128, 4, 16, 1024, False, 132)
     assert pl.gx == 1
-    # rows not 16-byte aligned: 32-row blocks read from device memory
-    pl = topk_score.launch_plan(2, 5000, 3, 4, False, 10, True, 132)
-    assert (pl.rs, pl.shmem) == (32, 0)
+    # SASRec: 200-byte rows in 8-byte units, 32 rows a stage of a 3-stage
+    # ring, the buffer in shared memory
+    pl = topk_score.launch_plan(1, 10**6, 50, 4, 8, 100, False, 132)
+    assert (pl.unit, pl.sp, pl.rs, pl.ns, pl.nslice) == (8, 25, 32, 3, 1)
+    assert (pl.gx, pl.nc, pl.buf_in_smem) == (132, 4096, True)
+    assert (pl.every, pl.grp) == (7, 12)      # 11 groups of 12 blocks
+    # rows not 16-byte aligned are staged too: 12-byte rows in 4-byte units
+    pl = topk_score.launch_plan(2, 5000, 3, 4, 4, 10, True, 132)
+    assert (pl.unit, pl.sp, pl.rs, pl.ns) == (4, 3, 448, 4) and pl.shmem > 0
+    # a k too large for the shared buffer takes the global one
+    pl = topk_score.launch_plan(1, 10**6, 4, 4, 16, 5000, False, 132)
+    assert not pl.buf_in_smem and pl.nc >= 8192
 
 
 # ---------------------------------------------------------------------------
@@ -275,118 +318,185 @@ class RegListMirror:
         return [x for x in self.e if x != (-np.inf, I32_MAX)]
 
 
-class BigListMirror:
-    """k > 32: a sorted list of up to k, a buffer of kBuf; a full buffer is
-    sorted and merged by rank placement."""
-
-    BUF = topk_score.BUF
-
-    def __init__(self, k):
-        self.k, self.lst, self.buf = k, [], []
-
-    @property
-    def thr(self):
-        return self.lst[-1] if len(self.lst) == self.k else (-np.inf, I32_MAX)
-
-    def offer(self, cands):
-        self.buf += [c for c in cands if _key(*c) < _key(*self.thr)]
-        if len(self.buf) > self.BUF - 32:
-            self.flush()
-
-    def flush(self):
-        if not self.buf:
-            return
-        buf = sorted(self.buf, key=lambda c: _key(*c))
-        out = [None] * min(self.k, len(self.lst) + len(buf))
-        bk = [_key(*c) for c in buf]
-        lk = [_key(*c) for c in self.lst]
-        for i, x in enumerate(self.lst):
-            pos = i + bisect.bisect_left(bk, _key(*x))
-            if pos < self.k:
-                out[pos] = x
-        for j, y in enumerate(buf):
-            pos = j + bisect.bisect_left(lk, _key(*y))
-            if pos < self.k:
-                out[pos] = y
-        assert None not in out
-        self.lst, self.buf = out, []
-
-    def entries(self):
-        return list(self.lst)
+def _ord(s):
+    """The kernel's order bits of float32 scores (-0 as +0)."""
+    u = np.asarray(s, np.float32).copy()
+    u[u == 0] = 0.0
+    u = u.view(np.uint32).astype(np.uint64)
+    return np.where(u & 0x80000000, ~u & 0xffffffff, u | 0x80000000)
 
 
-def consume(lst, entries):
-    """``consume``: rounds of 32 of a sorted list until none beats the k-th."""
-    for i0 in range(0, len(entries), 32):
-        rnd = entries[i0:i0 + 32]
-        if not any(_key(*c) < _key(*lst.thr) for c in rnd):
+def skey(s, r):
+    """The kernel's 64-bit key of (score desc, row asc): greater is better."""
+    return (_ord(s) << np.uint64(32)) | (np.uint64(0xffffffff)
+                                         - np.asarray(r, np.uint64))
+
+
+def radix_threshold(keys, want):
+    """``keep_k``'s select: 8-bit digits from the top, stopping at the first
+    digit whose bucket is taken whole; the ``want`` greatest keys are those
+    >= the returned prefix."""
+    pre = 0
+    for sh in range(56, -8, -8):
+        hm = 0 if sh == 56 else (~0 << (sh + 8)) & (2**64 - 1)
+        match = (keys & np.uint64(hm)) == np.uint64(pre & hm)
+        hist = np.bincount(((keys[match] >> np.uint64(sh)) & np.uint64(255))
+                           .astype(np.int64), minlength=256)
+        suf = np.cumsum(hist[::-1])[::-1]
+        b = int(np.flatnonzero((suf >= want) & (suf - hist < want))[0])
+        pre |= b << sh
+        want -= int(suf[b] - hist[b])
+        if hist[b] == want:
             break
-        lst.offer(rnd)
+    return pre
 
 
-def k6_mirror(cands, q, k, valid, n_sm):
+class BlockBuffer:
+    """k > 32: the block's candidate buffer behind a rising threshold; when
+    it could overflow, the k best are kept (``keep_k``) and the threshold
+    becomes their least score."""
+
+    def __init__(self, k, cap):
+        self.k, self.cap = k, cap
+        self.s, self.r = [], []
+        self.thr = np.float32(-np.inf)
+        self.kept = 0                       # keep_k calls
+
+    def append(self, s, r, ok=True):
+        if ok and s >= self.thr:            # NaN never passes
+            self.s.append(s)
+            self.r.append(r)
+            assert len(self.s) <= self.cap
+
+    def keep_k(self):
+        self.kept += 1
+        keys = skey(self.s, self.r)
+        pre = radix_threshold(keys, self.k)
+        keep = keys >= np.uint64(pre)
+        assert keep.sum() == self.k
+        self.s = [x for x, m in zip(self.s, keep) if m]
+        self.r = [x for x, m in zip(self.r, keep) if m]
+        self.thr = max(self.thr, np.float32(min(self.s)))
+
+
+def as_part(buf, k):
+    """``write_part``: the buffer's entries padded to k, and its threshold
+    (-inf below k entries)."""
+    n = len(buf.s)
+    return ([(buf.s[i], buf.r[i]) if i < n else (-np.inf, I32_MAX)
+             for i in range(k)], buf.thr if n >= k else np.float32(-np.inf))
+
+
+def merge_parts(parts, k, cap):
+    """``merge_parts``: the partials streamed through a buffer of ``cap``
+    behind the largest of their thresholds, k kept."""
+    buf = BlockBuffer(k, cap)
+    buf.thr = max(t for _, t in parts)
+    entries = [e for p, _ in parts for e in p]
+    room = cap - k
+    for e0 in range(0, len(entries), room):
+        if len(buf.s) > k:
+            buf.keep_k()
+        for sc, r in entries[e0:e0 + room]:
+            buf.append(sc, r, r != I32_MAX)
+    if len(buf.s) > k:
+        buf.keep_k()
+    return buf
+
+
+def k6_mirror(cands, q, k, valid, n_sm, unit=None, stats=None):
     """The kernel's arithmetic and merges in numpy: (B, k) scores, rows."""
     B, C, d = cands.shape
     acc = np.zeros((B, C), np.float32)
     for j in range(d):                       # left to right, each rounded
         acc = (acc + cands[..., j].astype(np.float32)
                * q[:, j, None].astype(np.float32)).astype(np.float32)
-    pl = topk_score.launch_plan(B, C, d, cands.dtype.itemsize, True, k,
-                                valid is not None, n_sm)
-    make = RegListMirror if pl.small else BigListMirror
+    elem = cands.dtype.itemsize
+    unit = unit or topk_score.staging_unit(d * elem, 0, elem)
+    pl = topk_score.launch_plan(B, C, d, elem, unit, k, valid is not None,
+                                n_sm)
     W = topk_score.WARPS
     n_rb = -(-C // pl.rs)
     out_s = np.full((B, k), -np.inf, np.float32)
     out_i = np.full((B, k), I32_MAX, np.int32)
 
-    def merge_warps(lists):
-        for lst in lists:
-            lst.flush()
-        for lst in lists[1:]:
-            if pl.small:
-                lists[0].offer([c for c in lst.e])
-            else:
-                consume(lists[0], lst.entries())
-        lists[0].flush()
-        e = lists[0].entries()
-        return e + [(-np.inf, I32_MAX)] * (k - len(e))
+    def rows_of(bx, w, it):
+        rb = bx * W + w + it * pl.gx * W
+        for j0 in range(rb * pl.rs, min(C, (rb + 1) * pl.rs), 32):
+            yield range(j0, min(j0 + 32, C, (rb + 1) * pl.rs))
+
+    def eligible(b, r):
+        return (valid is None or valid[b, r]) and not np.isnan(acc[b, r])
 
     for b in range(B):
-        parts = []
+        if pl.small:                         # register lists, as before
+            parts = []
+            for bx in range(pl.gx):
+                lists = [RegListMirror(k) for _ in range(W)]
+                for w in range(W):
+                    for it in range(-(-n_rb // (pl.gx * W))):
+                        for rows in rows_of(bx, w, it):
+                            lists[w].offer([(float(acc[b, r]), r)
+                                            for r in rows if eligible(b, r)])
+                for lst in lists[1:]:
+                    lists[0].offer(list(lst.e))
+                parts.append(lists[0].e)
+            lst = RegListMirror(k)
+            for part in parts:
+                lst.offer(part)
+            for i, (sc, r) in enumerate(lst.e):
+                out_s[b, i], out_i[b, i] = sc, r
+            continue
+        parts = []                           # (entries, threshold)
         for bx in range(pl.gx):
-            lists = [make(k) for _ in range(W)]
-            for w in range(W):
-                for rb in range(bx * W + w, n_rb, pl.gx * W):
-                    for j0 in range(rb * pl.rs, min(C, (rb + 1) * pl.rs), 32):
-                        rows = range(j0, min(j0 + 32, C, (rb + 1) * pl.rs))
-                        lists[w].offer([
-                            (float(acc[b, r]), r) for r in rows
-                            if (valid is None or valid[b, r])
-                            and not np.isnan(acc[b, r])])
-            parts.append(merge_warps(lists))
-        lists = [make(k) for _ in range(W)]
-        for g in range(pl.gx):
-            consume(lists[g % W], parts[g])
-        for i, (s, r) in enumerate(merge_warps(lists)):
-            out_s[b, i], out_i[b, i] = s, r
+            buf = BlockBuffer(k, pl.nc)
+            for it in range(-(-n_rb // (pl.gx * W))):   # warps in step
+                for w in range(W):
+                    for rows in rows_of(bx, w, it):
+                        for r in rows:
+                            buf.append(acc[b, r], r, eligible(b, r))
+                if it % pl.every == pl.every - 1 and \
+                        len(buf.s) > pl.nc - pl.every * W * pl.rs:
+                    buf.keep_k()
+            if len(buf.s) > k:
+                buf.keep_k()
+            parts.append(as_part(buf, k))
+            if stats is not None:
+                stats.append(buf.kept)
+        # the last block of each group, then the last of those: the stage
+        # memory as one large buffer
+        cap = max(pl.nc, pl.shmem // 8)
+        groups = [merge_parts(parts[g:g + pl.grp], k, cap)
+                  for g in range(0, pl.gx, pl.grp)]
+        buf = merge_parts([as_part(x, k) for x in groups], k, cap) \
+            if len(groups) > 1 else groups[0]
+        order = sorted(zip(buf.s, buf.r), key=lambda c: _key(*c))
+        for i, (sc, r) in enumerate(order):
+            out_s[b, i], out_i[b, i] = sc, r
     return out_s, out_i
 
 
-@pytest.mark.parametrize("C,d,k,masked,n_sm", [
-    (700, 4, 1, False, 4),
-    (5000, 4, 10, True, 4),         # several blocks, a mask
-    (3000, 8, 32, False, 3),
-    (3000, 8, 33, True, 2),          # the buffered list
-    (900, 128, 40, False, 1),        # k past each warp's rows; slices
-    (200, 4, 200, True, 1),          # k = C, most slots unfilled
+@pytest.mark.parametrize("C,d,k,masked,n_sm,unit", [
+    (700, 4, 1, False, 4, None),
+    (5000, 4, 10, True, 4, None),      # several blocks, a mask
+    (3000, 8, 32, False, 3, None),
+    (3000, 8, 33, True, 2, None),      # the block buffer
+    (900, 128, 40, False, 1, None),    # k past each warp's rows; slices
+    (200, 4, 200, True, 1, None),      # k = C, most slots unfilled
+    (6000, 50, 100, False, 1, None),   # SASRec's rows: 8-byte units, one
+    (6000, 50, 100, True, 1, 4),       # block's buffer cut back to k
+    (9000, 50, 100, False, 5, None),   # several blocks' partials
+    (40000, 50, 40, True, 30, None),   # partials merged in groups
+    (300, 50, 300, False, 2, None),    # k = C
+    (5000, 7, 64, True, 3, 4),         # 28-byte rows in 4-byte units
 ])
-def test_k6_mirror_matches_plain(C, d, k, masked, n_sm):
+def test_k6_mirror_matches_plain(C, d, k, masked, n_sm, unit):
     rng = np.random.default_rng(C + d + k)
     B = 2
     cands = rng.integers(-3, 4, (B, C, d)).astype(np.float32)  # many ties
     q = rng.integers(-2, 3, (B, d)).astype(np.float32)
     valid = rng.random((B, C)) < 0.4 if masked else None
-    got_s, got_i = k6_mirror(cands, q, k, valid, n_sm)
+    got_s, got_i = k6_mirror(cands, q, k, valid, n_sm, unit)
     ws, wi = ref.scored_topk_ref(
         torch.from_numpy(cands), torch.from_numpy(q), k=k,
         valid=None if valid is None else torch.from_numpy(valid))
@@ -394,10 +504,13 @@ def test_k6_mirror_matches_plain(C, d, k, masked, n_sm):
     np.testing.assert_array_equal(got_s, ws.numpy())
 
 
-def test_k6_mirror_equal_scores_across_blocks():
+@pytest.mark.parametrize("k", [12, 100])
+def test_k6_mirror_equal_scores_across_blocks(k):
     """Every row scores the same: the k lowest rows win, whichever blocks
-    and warps hold them; an all-masked query fills no slot."""
-    B, C, d, k = 2, 4000, 4, 12
+    and warps hold them (k = 100: every row passes the threshold, and the
+    select goes down to the rows' bits); an all-masked query fills no
+    slot."""
+    B, C, d = 2, 8000, 4
     cands = np.ones((B, C, d), np.float32)
     q = np.ones((B, d), np.float32)
     valid = np.ones((B, C), bool)
@@ -407,6 +520,44 @@ def test_k6_mirror_equal_scores_across_blocks():
     assert i[0].tolist() == list(range(1500, 1500 + k))
     assert (s[0] == 4.0).all()
     assert i[1].tolist() == [I32_MAX] * k and np.isneginf(s[1]).all()
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_k6_mirror_negative_scores_and_selection(masked):
+    """Real-valued rows of d = 50 whose scores are all negative: one
+    block's buffer is cut back to its k best more than once (the threshold
+    rises), and the result equals the plain version bitwise."""
+    rng = np.random.default_rng(5)
+    B, C, d, k = 1, 12000, 50, 100
+    cands = rng.standard_normal((B, C, d)).astype(np.float32)
+    q = rng.standard_normal((B, d)).astype(np.float32)
+    cands -= (3.0 * np.sign(q))[:, None, :]
+    valid = rng.random((B, C)) < 0.7 if masked else None
+    stats = []
+    got_s, got_i = k6_mirror(cands, q, k, valid, 1, stats=stats)
+    ws, wi = ref.scored_topk_ref(
+        torch.from_numpy(cands), torch.from_numpy(q), k=k,
+        valid=None if valid is None else torch.from_numpy(valid))
+    assert (ws.numpy() < 0).all()
+    assert stats[0] >= 2
+    np.testing.assert_array_equal(got_i, wi.numpy())
+    np.testing.assert_array_equal(got_s, ws.numpy())
+
+
+def test_k6_radix_threshold_keeps_exactly_the_best():
+    """The select's threshold keeps exactly the k greatest keys, on keys
+    that share long prefixes (equal scores: only the rows differ) and on
+    spread ones."""
+    rng = np.random.default_rng(3)
+    for scores in (np.full(3000, 2.5, np.float32),
+                   rng.integers(-2, 3, 3000).astype(np.float32),
+                   rng.standard_normal(3000).astype(np.float32)):
+        rows = rng.permutation(10**6)[:3000]
+        keys = skey(scores, rows)
+        for k in (1, 33, 100, 2999):
+            pre = radix_threshold(keys, k)
+            kept = np.sort(keys[keys >= np.uint64(pre)])
+            np.testing.assert_array_equal(kept, np.sort(keys)[-k:])
 
 
 def test_scored_topk_plain_unfilled_and_masked_rows():
@@ -539,6 +690,34 @@ def test_scored_topk_kernel_ties_across_blocks_and_masks():
     s, i = ops.scored_topk(ones, torch.ones(4, device="cuda"), k=10)
     assert i.tolist() == list(range(10)) and (s == 4.0).all()
     _k6_same(ones, torch.ones(4, device="cuda"), 50)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [10, 100, 1024])
+def test_scored_topk_kernel_sasrec_shape(k):
+    """SASRec's retrieval shape, C = 10^6 rows of d = 50 (200 bytes: staged
+    in 8-byte units, copied as 16-byte pieces of a contiguous span), at its
+    k = 100, at k = 10 (register lists) and k = 1,024; the same rows one
+    element off a 16-byte boundary (4-byte units)."""
+    _need_card()
+    cands, q = _k6_case(10**6, 50, torch.float32, 50 + k)
+    _k6_same(cands, q, k)
+    flat = torch.cat([torch.zeros(1, device="cuda"), cands.reshape(-1)])
+    _k6_same(flat[1:].view(10**6, 50), q, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+def test_scored_topk_kernel_two_byte_units(dtype):
+    """Odd d in 2-byte elements: 2-byte units, which cp.async cannot move
+    (staged by plain loads), at k = 10 and k = 100 with a mask."""
+    _need_card()
+    cands, q = _k6_case(70001, 7, dtype, 17)
+    g = torch.Generator().manual_seed(18)
+    valid = (torch.rand(70001, generator=g) < 0.5).cuda()
+    for k in (10, 100):
+        _k6_same(cands, q, k)
+        _k6_same(cands, q, k, valid)
 
 
 @pytest.mark.cuda
